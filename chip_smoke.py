@@ -1,10 +1,13 @@
-"""Drive the torch package on one CUDA card and hold its kernel to account.
+"""Drive the torch package on one CUDA card and hold its kernels to account.
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line (any failure exits non-zero):
+It drives both paths of the package: the provisioning solve (the FFD kernel)
+and the consolidation screen (the repack kernel). Phases, each printing one
+JSON line (any failure exits non-zero):
   1. probe   — device name, compute capability (must be 9.0), nvidia-smi;
-  2. build   — compile every kernel under karpenter_provider_aws_tpu_torch/csrc;
+  2. build   — compile every kernel under karpenter_provider_aws_tpu_torch/csrc
+               (one nvcc per source, all started together);
   3. parity  — the FFD kernel against its plain PyTorch version on the same
                CUDA tensors: a random family, row exhaustion, pre-opened rows
                and the headline shapes (integers exact, floats to
@@ -17,6 +20,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
                the 8,192-row cap and at the rows the main path used (where
                the kernel is held to the plain version once more);
   6. profile — device time by kernel over one warm solve, and the idle share;
+  7. repack_parity — the repack kernel against its plain PyTorch version on
+               the same CUDA tensors: ``ops/repack_cases.py``'s random family
+               (seeds 0-7), candidate subset, empty node, nothing-fits,
+               self-exclusion and float hostname cap, its global-scratch
+               cases at N = 8,192 (one pass of the kernel's node loop) and
+               N = 12,000 (two passes), and config4 (``ok`` exact);
+  8. consolidation — the screen's main path on config4 (the 5,000-node
+               ``_synth_cluster`` of the repo's benchmarks): encode_cluster,
+               consolidatable (must launch the kernel, pass 5,000 nodes and
+               equal the CPU mask), the delete prefix (must be 4,306), warm
+               screen times, and one screen under the profiler;
+  9. repack_timing — the kernel, the same launch with no live slot (its
+               private copies alone) and the plain version at config4's
+               shapes and at N = 8,192, beside the bound;
 then the kernels line, the card's name and power limit, and the result line.
 It needs the repository's package beside it and a CUDA device.
 """
@@ -162,6 +179,68 @@ def time_cuda(fn, runs: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def repack_bytes_and_ops(t) -> tuple[int, int]:
+    """Bytes the screen must move (each input read once, the ``ok`` mask
+    written once) and the f32 operations this run's data needs: for every
+    candidate's live slot (count > 0) of group g, per node the fit over the
+    resources g requests (add, divide, min: 3 per such axis; the others are
+    skipped), then the clamp, the cap, the self mask, the scan and the
+    placement (6). The update touches only the rows that take pods (at most
+    the slot's count) and is left out."""
+    free, requests, gids, gcounts, cap, cand = t
+    N = free.shape[0]
+    nbytes = sum(x.numel() * x.element_size() for x in t) + cand.numel()  # ok: 1 byte each
+    rows = cand.long()
+    live = gcounts[rows] > 0
+    axes = (requests > 0).sum(dim=1)  # [G] resources each group requests
+    per_node = 3 * axes[gids[rows][live].long()] + 6
+    return nbytes, int(per_node.sum()) * N
+
+
+def config4_cluster(n_nodes=5000, pods_per_node=8):
+    """The repo's config4 cluster (``benchmarks/solve_configs.py``
+    ``_synth_cluster``): RandomState(1), c/m types of 4-16 vCPUs, spot, one
+    claim and one ready node each, 1..8 pods of 250m/512Mi bound to it."""
+    from karpenter_provider_aws_tpu_torch.catalog import CatalogProvider
+    from karpenter_provider_aws_tpu_torch.models import labels as lbl
+    from karpenter_provider_aws_tpu_torch.models.nodeclaim import NodeClaim
+    from karpenter_provider_aws_tpu_torch.models.pod import make_pods
+    from karpenter_provider_aws_tpu_torch.state import Cluster, Node
+
+    catalog = CatalogProvider()
+    cluster = Cluster()
+    rng = np.random.RandomState(1)
+    types = [t for t in catalog.list() if t.category in ("c", "m") and 4 <= t.vcpus <= 16]
+    for i in range(n_nodes):
+        it = types[rng.randint(len(types))]
+        zone = catalog.zones[rng.randint(len(catalog.zones))]
+        claim = NodeClaim(name=f"default-{i:x}", nodepool_name="default",
+                          nodeclass_name="default", instance_type_options=[it.name],
+                          zone_options=[zone], capacity_type_options=["spot"])
+        claim.status.provider_id = f"cloud:///{zone}/i-bench{i}"
+        claim.status.capacity = it.capacity()
+        claim.status.allocatable = catalog.allocatable(it)
+        claim.labels.update(it.labels())
+        claim.labels[lbl.TOPOLOGY_ZONE] = zone
+        claim.labels[lbl.CAPACITY_TYPE] = "spot"
+        claim.labels[lbl.NODEPOOL] = "default"
+        for cond in ("Launched", "Registered", "Initialized"):
+            claim.status.set_condition(cond, True)
+        cluster.apply(claim)
+        node = Node(name=f"node-{claim.name}", provider_id=claim.status.provider_id,
+                    nodepool_name="default", nodeclaim_name=claim.name,
+                    labels=dict(claim.labels), capacity=claim.status.capacity,
+                    allocatable=claim.status.allocatable, ready=True)
+        node.labels[lbl.HOSTNAME] = node.name
+        claim.status.node_name = node.name
+        cluster.apply(node)
+        fill = rng.randint(1, pods_per_node + 1)
+        for p in make_pods(fill, f"p{i}", {"cpu": "250m", "memory": "512Mi"}):
+            cluster.apply(p)
+            cluster.bind_pod(p.uid, node.name)
+    return cluster, catalog
+
+
 def profile_solve(solve) -> dict:
     """Device time by kernel over one call, and the device's idle share of
     its wall time (the profiler's own cost is inside the wall)."""
@@ -187,6 +266,136 @@ def profile_solve(solve) -> dict:
             "device_busy_ms": busy_ms if kernels else "not measured",
             "idle_share": 1.0 - busy_ms / wall_ms if kernels else "not measured",
             "kernels": kernels[:15]}
+
+
+def screen_phases(dev, name: str, smi: str) -> dict:
+    """Phases 7-9: the repack kernel against its plain version, the
+    consolidation screen's main path on config4, and the kernel's timing.
+    Returns the repack kernel's entry of the kernels line."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidate, repack_cases, repack_cuda
+
+    # 7. repack parity: kernel vs plain version on the same CUDA tensors (the
+    # config4 case from its own encode, so the main path below uploads anew)
+    t_build = time.perf_counter()
+    cluster4, catalog4 = config4_cluster()
+    cluster_build_s = time.perf_counter() - t_build
+    config4_arrays = consolidate.screen_arrays(consolidate.encode_cluster(cluster4, catalog4))
+    cases = {**repack_cases.small_cases(seeds=8), **repack_cases.large_cases()}
+    cases["config4"] = tuple(config4_arrays[k] for k in (
+        "free", "requests", "group_ids", "group_counts", "cap", "candidates"))
+    rcases, rtensors, repack_err = {}, {}, 0.0
+    for cname, arrays in cases.items():
+        rt = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+        got = repack_cuda.repack_check(*rt)
+        torch.cuda.synchronize()
+        want = consolidate.repack_check(*rt)
+        err = float((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        repack_err = max(repack_err, err)
+        if err != 0.0 or not torch.equal(got, want):
+            raise AssertionError(f"{cname}: repack kernel and plain version differ on "
+                                 f"{int((got != want).sum())} of {got.numel()} candidates")
+        N_c, R_c = arrays[0].shape
+        rcases[cname] = {"N": N_c, "R": R_c, "C": int(arrays[5].shape[0]),
+                         "ok": int(got.sum()), "max_abs_err": err,
+                         "tiles": -(-N_c // repack_cuda.TILE_NODES),
+                         "global_scratch": repack_cuda.repack_smem_bytes(N_c, R_c)
+                         > repack_cuda.SMEM_LIMIT_BYTES}
+        rtensors[cname] = rt
+    for cname, tiles in (("global_scratch_8192", 1), ("two_tiles_12000", 2)):
+        c = rcases[cname]
+        if not c["global_scratch"] or c["tiles"] != tiles or not 0 < c["ok"] < c["C"]:
+            raise AssertionError(f"{cname}: expected the global scratch over {tiles} "
+                                 f"tile(s) and split verdicts, got {c}")
+    emit({"phase": "repack_parity", "parity": "exact", "max_abs_err": repack_err,
+          "cases": rcases})
+
+    # 8. consolidation: the screen's main path on config4, through the kernel
+    t_enc = time.perf_counter()
+    ct = consolidate.encode_cluster(cluster4, catalog4)
+    encode4_ms = (time.perf_counter() - t_enc) * 1e3
+    repack_cuda.LAUNCHES = 0
+    mask = consolidate.consolidatable(ct)
+    repack_launches = repack_cuda.LAUNCHES
+    first_screen = dict(consolidate.LAST_SCREEN)
+    if repack_launches < 1:
+        raise AssertionError("the consolidation screen never launched the repack kernel")
+    n_nodes, n_groups = len(ct.node_names), int(ct.requests.shape[0])
+    n_pods = int(ct.group_counts.sum())
+    if (n_nodes, n_groups, n_pods) != (5000, 1, 22791):
+        raise AssertionError(f"config4 encoded to N={n_nodes}, G={n_groups}, {n_pods} pods")
+    if int(mask.sum()) != 5000:
+        raise AssertionError(f"{int(mask.sum())} of 5000 nodes passed the screen")
+    t_pre = time.perf_counter()
+    prefix = consolidate.delete_prefix(ct, mask)
+    prefix_ms = (time.perf_counter() - t_pre) * 1e3
+    if len(prefix) != 4306:
+        raise AssertionError(f"delete prefix {len(prefix)}, expected 4306")
+    t_cpu = time.perf_counter()
+    cpu_mask = consolidate.consolidatable(ct, device="cpu")
+    cpu_screen_ms = (time.perf_counter() - t_cpu) * 1e3
+    if not np.array_equal(mask, cpu_mask):
+        raise AssertionError("the CUDA screen mask differs from the CPU mask")
+    warm = {"wall_ms": [], "upload_ms": [], "launch_ms": [], "fetch_ms": []}
+    for _ in range(7):
+        ct.__dict__.pop("_screen_mask_memo", None)
+        t_w = time.perf_counter()
+        if not np.array_equal(consolidate.consolidatable(ct), mask):
+            raise AssertionError("a warm screen gave another mask")
+        warm["wall_ms"].append((time.perf_counter() - t_w) * 1e3)
+        for k in ("upload_ms", "launch_ms", "fetch_ms"):
+            warm[k].append(consolidate.LAST_SCREEN[k])
+    ct.__dict__.pop("_screen_mask_memo", None)
+    prof = profile_solve(lambda: consolidate.consolidatable(ct))
+    prof["phase"] = "profile_screen"
+    emit({"phase": "consolidation", "nodes": n_nodes, "groups": n_groups, "pods": n_pods,
+          "slot_width": int(config4_arrays["group_ids"].shape[1]),
+          "blocked": int(ct.blocked.sum()), "passed": int(mask.sum()),
+          "delete_prefix": len(prefix), "cpu_mask_equal": True,
+          "launches": repack_launches, "cluster_build_s": cluster_build_s,
+          "encode_ms": encode4_ms, "first_screen": first_screen, "prefix_ms": prefix_ms,
+          "cpu_screen_ms": cpu_screen_ms,
+          "warm_median_ms": {k: statistics.median(v) for k, v in warm.items()},
+          "backend": first_screen["backend"], "device": name, "card": smi})
+    emit(prof)
+
+    # 9. repack timing at config4's shapes (the main path's own tensors) and
+    # at N = 8,192 (the global scratch)
+    main4 = ct.__dict__["_screen_device"][dev]
+    main4 = [main4[k] for k in ("free", "requests", "group_ids", "group_counts", "cap",
+                                "candidates")]
+    rtiming = {}
+    for cname, rt in (("config4", main4),
+                      ("global_scratch_8192", rtensors["global_scratch_8192"])):
+        nbytes, ops = repack_bytes_and_ops(rt)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+        no_slots = rt[:3] + [torch.zeros_like(rt[3])] + rt[4:]  # every slot skipped
+        rtiming[cname] = {
+            "N": int(rt[0].shape[0]), "C": int(rt[5].shape[0]), "S": int(rt[2].shape[1]),
+            "kernel_ms": time_cuda(lambda: repack_cuda.repack_check(*rt), runs=30),
+            # the same launch with no live slot: the per-candidate private
+            # copy of free and the grid-stride loop alone
+            "copy_only_ms": time_cuda(lambda: repack_cuda.repack_check(*no_slots), runs=30),
+            "plain_ms": time_cuda(lambda: consolidate.repack_check(*rt), runs=5, warmup=1),
+            "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "global_scratch": repack_cuda.repack_smem_bytes(*rt[0].shape)
+            > repack_cuda.SMEM_LIMIT_BYTES,
+        }
+    emit({"phase": "repack_timing", "shapes": rtiming, "launches_per_screen": repack_launches,
+          "library_ms": None, "card": smi})
+
+    r4 = rtiming["config4"]  # the repack kernel's line is at config4's shapes
+    return {
+        "name": "repack", "route": "cuda",
+        "source": "karpenter_provider_aws_tpu_torch/csrc/repack.cu",
+        "replaces": "karpenter_provider_aws_tpu/ops/repack_pallas.py:49",
+        "tpu_kernel": "ops/repack_pallas.py::_kernel",
+        "launches": repack_launches, "parity": "exact", "max_abs_err": repack_err,
+        "nodes": r4["N"], "ms": r4["kernel_ms"], "plain_ms": r4["plain_ms"],
+        "bound_ms": r4["bound_ms"], "bound_by": r4["bound_by"],
+        "library_ms": None,
+    }
 
 
 def main() -> int:
@@ -337,7 +546,9 @@ def main() -> int:
     # 6. profile: device time of one warm solve, by kernel
     emit(profile_solve(lambda: solver.solve(pods, [pool], catalog)))
 
-    main = timing[N_main]  # the kernel's line is at the main path's shapes
+    repack_line = screen_phases(dev, name, smi)
+
+    main = timing[N_main]  # the FFD kernel's line is at the main path's shapes
     emit({"kernels": [{
         "name": "ffd", "route": "cuda",
         "source": "karpenter_provider_aws_tpu_torch/csrc/ffd.cu",
@@ -347,7 +558,7 @@ def main() -> int:
         "rows": N_main, "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
-    }]})
+    }, repack_line]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,5 +1,6 @@
-"""The parts of the NodeClass model that a NodePool needs: the kubelet
-configuration it carries and the process-wide spec write sequence.
+"""The parts of the NodeClass model that a NodePool and a NodeClaim need:
+the kubelet configuration, the status condition and the process-wide spec
+write sequence.
 
 Reference parity: ``pkg/apis/v1beta1/ec2nodeclass.go`` (KubeletConfiguration).
 """
@@ -17,6 +18,15 @@ from .pod import _Seq
 #: disruption controller's dirty-set drift/expiry state) re-scan when this
 #: sequence moves — the same over-invalidation contract as NODE_WRITE_SEQ.
 SPEC_WRITE_SEQ = _Seq()
+
+
+@dataclass
+class Condition:
+    type: str
+    status: bool
+    reason: str = ""
+    message: str = ""
+    transition_seq: int = 0
 
 
 @dataclass(frozen=True)

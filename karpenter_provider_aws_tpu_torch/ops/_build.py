@@ -48,29 +48,33 @@ def _target(name: str) -> tuple[Path, Path]:
 
 def build_all(names=None) -> dict[str, float]:
     """Compile the given kernels (default: every ``csrc/*.cu``), one ``nvcc``
-    per source. Returns seconds per name; sources already built are skipped
-    (0.0)."""
+    per source, all started together. Returns seconds per name; sources
+    already built are skipped (0.0)."""
     import time
 
     names = sorted(p.stem for p in CSRC.glob("*.cu")) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    seconds = {}
+    seconds = {name: 0.0 for name in names}
+    running = {}
     for name in names:
         src, out = _target(name)
-        seconds[name] = 0.0
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in running.items():
+        BUILD_LOGS[name] = proc.communicate()[0]
         seconds[name] = time.perf_counter() - t0
-        BUILD_LOGS[name] = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
-                               f"{proc.returncode}\n{BUILD_LOGS[name]}")
-        os.replace(tmp, out)
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{BUILD_LOGS[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return seconds
 
 
