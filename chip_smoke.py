@@ -7,18 +7,32 @@ and the consolidation screen (the repack kernel). Phases, each printing one
 JSON line (any failure exits non-zero):
   1. probe   — device name, compute capability (must be 9.0), nvidia-smi;
   2. build   — compile every kernel under karpenter_provider_aws_tpu_torch/csrc
-               (one nvcc per source, all started together);
+               (one nvcc per source, all started together); ptxas's
+               registers, shared memory and spills, each source's sha256,
+               and the FFD kernel's cluster occupancy on both branches;
   3. parity  — the FFD kernel against its plain PyTorch version on the same
-               CUDA tensors: a random family, row exhaustion, pre-opened rows
-               and the headline shapes (integers exact, floats to
-               rtol 1e-6 / atol 1e-3);
+               CUDA tensors: ``ops/ffd_cases.py``'s cases (a random family,
+               row exhaustion, pre-opened rows, count-0 groups between real
+               ones, an opened range and a row exhaustion across the
+               kernel's per-CTA slices, R = 16, hostname-capped groups
+               beside pre-opened rows, the global-memory branch at 20,480
+               rows, T = 2,048, a zero-request group), the headline at
+               8,192 rows and config8's encoded problem (integers exact,
+               floats to rtol 1e-6 / atol 1e-3);
   4. main    — TorchSolver().solve on the headline problem (50,000 pods in
                64 shapes, seed 0, one pool of c/m/r, the real catalog), which
                must launch the kernel, place every pod, and give the same plan
                as the same solve with every tensor on the CPU;
-  5. timing  — the kernel and the plain version at the headline shapes, at
-               the 8,192-row cap and at the rows the main path used (where
-               the kernel is held to the plain version once more);
+  5. timing  — config8 (``benchmarks/solve_configs.py``'s 300-deployment
+               fleet, seed 3) solved on the card and on the CPU (same plan),
+               then the FFD wrapper's time per call (``kernel_ms``: CUDA events
+               around the whole call, its zero fills included), the
+               kernel's device time (``device_ms``: the profiler's CUDA
+               records, with how many it kept), the plain version and the
+               bound at the rows the main path used (held to the plain
+               version there too), at 8,192 rows, at config8's rows and on
+               the global-memory branch, with real groups and microseconds
+               of device time per real group;
   6. profile — device time by kernel over one warm solve, and the idle share;
   7. repack_parity — the repack kernel against its plain PyTorch version on
                the same CUDA tensors: ``ops/repack_cases.py``'s random family
@@ -40,11 +54,13 @@ It needs the repository's package beside it and a CUDA device.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -55,6 +71,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 RTOL, ATOL = 1e-6, 1e-3
 HEADLINE_PODS = 50_000
+CONFIG8_ROWS = 768  # the rows TorchSolver gives config8's kernel launch
 
 
 def emit(obj) -> None:
@@ -69,46 +86,15 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def random_problem(rng, G, T, R, Z, C):
-    requests = np.zeros((G, R), dtype=np.float32)
-    requests[:, 0] = rng.choice([100, 250, 500, 1000, 2000], G)
-    requests[:, 1] = rng.choice([256, 512, 1024, 4096], G)
-    requests[:, 2] = 1.0
-    counts = rng.randint(1, 40, G).astype(np.int32)
-    compat = rng.rand(G, T) < 0.7
-    compat[:, 0] = True
-    capacity = np.zeros((T, R), dtype=np.float32)
-    capacity[:, 0] = rng.choice([4000, 8000, 16000, 32000], T)
-    capacity[:, 1] = rng.choice([8192, 16384, 65536], T)
-    capacity[:, 2] = rng.choice([29, 58, 110, 250], T)
-    price = np.where(compat, rng.uniform(0.05, 3.0, (G, T)).astype(np.float32), np.inf)
-    group_window = rng.rand(G, Z, C) < 0.8
-    group_window[:, 0, 0] = True
-    type_window = rng.rand(T, Z, C) < 0.8
-    type_window[:, 0, 0] = True
-    mpn = np.where(rng.rand(G) < 0.2, rng.randint(1, 5, G), 1 << 30).astype(np.int32)
-    return dict(requests=requests, counts=counts, compat=compat, capacity=capacity,
-                price=price.astype(np.float32), group_window=group_window,
-                type_window=type_window, max_per_node=mpn)
+FFD_FIELDS = ("requests", "counts", "compat", "capacity", "price", "group_window",
+              "type_window", "max_per_node")
 
 
-def headline_pods(pkg, n=HEADLINE_PODS):
-    """The repository's headline problem generator (64 shapes, seed 0)."""
-    lbl = pkg["lbl"]
-    rng = np.random.RandomState(0)
-    pods = []
-    per = max(1, n // 64)
-    for i in range(64):
-        cpu_m = int(rng.choice([100, 250, 500, 1000, 2000, 4000, 8000]))
-        mem_mi = cpu_m * int(rng.choice([1, 2, 4, 8]))
-        kwargs = {}
-        r = rng.rand()
-        if r < 0.15:
-            kwargs["node_selector"] = {lbl.ARCH: "arm64"}
-        elif r < 0.25:
-            kwargs["node_selector"] = {lbl.TOPOLOGY_ZONE: str(rng.choice(["zone-a", "zone-b"]))}
-        pods += pkg["make_pods"](per, f"shape{i}", {"cpu": f"{cpu_m}m", "memory": f"{mem_mi}Mi"}, **kwargs)
-    return pods
+def problem_arrays(problem) -> dict:
+    """An encoded (padded) problem's FFD inputs as host arrays."""
+    arrays = {k: getattr(problem, k) for k in FFD_FIELDS}
+    arrays["max_per_node"] = np.minimum(arrays["max_per_node"], 1 << 30).astype(np.int32)
+    return arrays
 
 
 def to_device(arrays, ffd, device):
@@ -117,6 +103,45 @@ def to_device(arrays, ffd, device):
     t["group_window"] = torch.from_numpy(ffd.pack_window_bits(arrays["group_window"])).to(device)
     t["type_window"] = torch.from_numpy(ffd.pack_window_bits(arrays["type_window"])).to(device)
     return t
+
+
+def device_ms(fn, key: str, runs: int) -> tuple[float, int]:
+    """Mean device time (ms) of the kernel whose name holds ``key`` over
+    ``runs`` calls of ``fn``, from the profiler's CUDA activity records (the
+    kernel alone, without the wrapper's host work or its other launches),
+    and how many records the profiler kept: the mean is over those."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and key in evt.key:
+            t = getattr(evt, "self_device_time_total", None)
+            us += evt.self_cuda_time_total if t is None else t
+            count += evt.count
+    if not 1 <= count <= runs:
+        raise AssertionError(f"the profiler saw {count} launches of {key}, expected {runs}")
+    return us / count / 1e3, count
+
+
+def ffd_times(ffd_cuda, t, N, init=None, n_pre=0, runs: int = 30) -> dict:
+    """The FFD wrapper's times on one problem: ``kernel_ms``, the median
+    per-call CUDA-event time of the whole wrapper call (its zero fills and
+    host work included), and ``device_ms``, the kernel's own device time,
+    with the profiler's records kept of ``runs``."""
+    def kernel():
+        return call(ffd_cuda.ffd_solve, t, N, init, n_pre)
+
+    dev_ms, records = device_ms(kernel, "ffd_kernel", runs)
+    return {"kernel_ms": time_cuda(kernel, runs=runs), "device_ms": dev_ms,
+            "device_records": records, "runs": runs}
 
 
 def call(solve, t, N, init=None, n_pre=0):
@@ -139,11 +164,12 @@ def compare(name, got, want) -> float:
     return err
 
 
-def kernel_bytes_and_ops(t, N, res) -> tuple[int, int]:
+def kernel_bytes_and_ops(t, N, res, n_pre=0) -> tuple[int, int]:
     """Bytes the solve must move (each input read once, each output written
     once) and the f32 operations this run's data needs: per group, the fit
-    over the rows open at its start (sub, add, div, min per resource) and
-    the per-type fit of the open phase."""
+    over the rows open at its start (the ``n_pre`` pre-opened ones and those
+    opened before; sub, add, div, min per resource) and the per-type fit of
+    the open phase."""
     G, R = t["requests"].shape
     T = t["capacity"].shape[0]
     state = N * (4 + 4 + 4) + 2 * N * R * 4 + 4
@@ -153,15 +179,28 @@ def kernel_bytes_and_ops(t, N, res) -> tuple[int, int]:
     placed = (res.placed > 0).cpu().numpy()
     last_row = np.where(placed.any(axis=0))[0]
     opened = np.zeros(G, dtype=np.int64)  # rows open at each group's start
-    high = -1
+    high = n_pre - 1
     for g in range(G):
         opened[g] = high + 1
         rows = np.nonzero(placed[g])[0]
         if rows.size:
             high = max(high, int(rows.max()))
-    assert last_row.size == 0 or high == int(last_row.max())
+    assert last_row.size == 0 or high >= int(last_row.max())
     ops = int(opened.sum()) * R * 4 + G * T * R * 3
     return inputs + outputs, ops
+
+
+def same_plan(got, want, what: str) -> None:
+    """The CUDA solve's plan (types, pods per node, binds, cost) equals the
+    CPU solve's."""
+    def plan(r):
+        return ([(s.instance_type_options[0], [p.name for p in s.pods]) for s in r.node_specs],
+                [(p.name, n) for p, n in r.binds])
+
+    if plan(got) != plan(want):
+        raise AssertionError(f"{what}: the CUDA plan differs from the CPU plan")
+    if abs(got.total_cost - want.total_cost) > 1e-6 * max(1.0, want.total_cost):
+        raise AssertionError(f"{what}: cost {got.total_cost} vs CPU {want.total_cost}")
 
 
 def time_cuda(fn, runs: int, warmup: int = 3) -> float:
@@ -406,7 +445,8 @@ def main() -> int:
     from karpenter_provider_aws_tpu_torch.models import NodePool, Operator, Requirement
     from karpenter_provider_aws_tpu_torch.models import labels as lbl
     from karpenter_provider_aws_tpu_torch.models.pod import make_pods
-    from karpenter_provider_aws_tpu_torch.ops import _build, ffd, ffd_cuda
+    from karpenter_provider_aws_tpu_torch.interop import state_from_reference
+    from karpenter_provider_aws_tpu_torch.ops import _build, ffd, ffd_cases, ffd_cuda, solve_cases
     from karpenter_provider_aws_tpu_torch.ops.encode import encode_problem, pad_problem
     from karpenter_provider_aws_tpu_torch.scheduling import TorchSolver
 
@@ -426,60 +466,48 @@ def main() -> int:
     ptxas = {k: [ln for ln in v.splitlines() if "registers" in ln or "spill" in ln]
              for k, v in _build.BUILD_LOGS.items()}
     emit({"phase": "build", "seconds": seconds, "wall_s": time.perf_counter() - t0,
-          "ptxas": ptxas})
+          "ptxas": ptxas,
+          "sha256": {p.name: hashlib.sha256(p.read_bytes()).hexdigest()[:16]
+                     for p in sorted(_build.CSRC.glob("*.cu"))},
+          # clusters of the FFD kernel the card holds at once, on each branch
+          "ffd_clusters": {"resident_8192x10": ffd_cuda.cluster_occupancy(8192, 10),
+                           "global_20480x10": ffd_cuda.cluster_occupancy(20480, 10)}})
 
-    # 3. parity: kernel vs plain version on the same CUDA tensors
-    max_err = 0.0
-    cases = []
-    for seed in range(8):
-        cases.append((f"random{seed}", random_problem(np.random.RandomState(seed), 12, 40, 4, 3, 3),
-                      256, None, 0))
-    rows = random_problem(np.random.RandomState(7), 8, 10, 4, 2, 3)
-    rows["counts"] = (rows["counts"] * 50).astype(np.int32)
-    cases.append(("row_exhaustion", rows, 16, None, 0))
-    rng = np.random.RandomState(11)
-    pre = random_problem(rng, 6, 20, 4, 3, 3)
-    pre["max_per_node"][:] = 1 << 30
-    N_pre, n_pre = 128, 5
-    init = [np.zeros(N_pre, np.int32), np.zeros(N_pre, np.float32), np.zeros((N_pre, 4), np.float32),
-            np.zeros((N_pre, 4), np.float32), np.zeros(N_pre, np.int32)]
-    tw_bits = ffd.pack_window_bits(pre["type_window"])
-    for i in range(n_pre):
-        ty = rng.randint(20)
-        init[0][i] = ty
-        init[3][i] = pre["capacity"][ty]
-        init[2][i] = pre["capacity"][ty] * rng.uniform(0.2, 0.6)
-        init[4][i] = tw_bits[ty]
-    cases.append(("pre_opened", pre, N_pre, init, n_pre))
-    pkg = {"lbl": lbl, "make_pods": make_pods}
+    # 3. parity: kernel vs plain version on the same CUDA tensors, on
+    # ops/ffd_cases.py's cases (both branches), the headline and config8
+    pkg = SimpleNamespace(lbl=lbl, make_pods=make_pods)
     pool = NodePool(name="default",
                     requirements=[Requirement(lbl.INSTANCE_CATEGORY, Operator.IN, ("c", "m", "r"))])
     catalog = CatalogProvider()
-    pods = headline_pods(pkg)
+    pods = solve_cases.headline_pods(pkg)
     t_enc = time.perf_counter()
     problem = pad_problem(encode_problem(pods, catalog, nodepool=pool))
     encode_cold_ms = (time.perf_counter() - t_enc) * 1e3
-    head_arrays = {k: getattr(problem, k) for k in (
-        "requests", "counts", "compat", "capacity", "price", "group_window", "type_window",
-        "max_per_node")}
-    head_arrays["max_per_node"] = np.minimum(head_arrays["max_per_node"], 1 << 30).astype(np.int32)
-    N_head = 8192
-    cases.append(("headline", head_arrays, N_head, None, 0))
-    parity = {}
-    for cname, arrays, N, init_np, npre in cases:
+    pods8 = solve_cases.config8_pods(pkg)
+    cases = {cname: (dict(zip(FFD_FIELDS, args)), N, init, npre)
+             for cname, (args, N, init, npre, _z, _c) in
+             {**ffd_cases.small_cases(seeds=8), **ffd_cases.card_cases()}.items()}
+    cases["headline"] = (problem_arrays(problem), 8192, None, 0)
+    cases["config8"] = (problem_arrays(pad_problem(encode_problem(pods8, catalog, nodepool=pool))),
+                        CONFIG8_ROWS, None, 0)
+    max_err, parity, tensors = 0.0, {}, {}
+    for cname, (arrays, N, init_np, npre) in cases.items():
         t = to_device(arrays, ffd, dev)
-        init_state = None
-        if init_np is not None:
-            init_state = ffd._State(
-                *(torch.from_numpy(a).to(dev) for a in init_np),
-                n_open=torch.tensor(npre, dtype=torch.int32, device=dev))
+        init_state = (None if init_np is None
+                      else state_from_reference(*init_np, n_open=npre, device=dev))
         got = call(ffd_cuda.ffd_solve, t, N, init_state, npre)
         torch.cuda.synchronize()
         want = call(ffd.ffd_solve, t, N, init_state, npre)
         err = compare(cname, got, want)
         max_err = max(max_err, err)
-        parity[cname] = {"n_open": int(got.n_open), "placed": int(got.placed.sum()),
+        (G, R), T = t["requests"].shape, t["capacity"].shape[0]
+        parity[cname] = {"N": N, "G": G, "real_groups": int((arrays["counts"] > 0).sum()),
+                         "T": T, "R": R, "n_pre": npre, "resident": ffd_cuda.resident(N, R),
+                         "n_open": int(got.n_open), "placed": int(got.placed.sum()),
                          "unplaced": int(got.unplaced.sum()), "max_abs_err": err}
+        tensors[cname] = (t, N, init_state, npre)
+    if parity["global_branch"]["resident"] or not parity["headline"]["resident"]:
+        raise AssertionError("the cases did not cover both branches of the kernel")
     emit({"phase": "parity", "cases": parity, "max_abs_err": max_err, "rtol": RTOL, "atol": ATOL})
 
     # 4. main path: the user's entry point, through the kernel
@@ -492,16 +520,7 @@ def main() -> int:
         raise AssertionError("the main path never launched the FFD kernel")
     if res.pods_placed() != len(pods) or res.unschedulable:
         raise AssertionError(f"placed {res.pods_placed()} of {len(pods)} pods")
-    cpu = TorchSolver(device="cpu").solve(pods, [pool], catalog)
-
-    def plan(r):
-        return [(s.instance_type_options[0], [p.name for p in s.pods]) for s in r.node_specs]
-
-    if plan(res) != plan(cpu) or [(p.name, n) for p, n in res.binds] != [
-            (p.name, n) for p, n in cpu.binds]:
-        raise AssertionError("the CUDA plan differs from the CPU plan")
-    if abs(res.total_cost - cpu.total_cost) > 1e-6 * max(1.0, cpu.total_cost):
-        raise AssertionError(f"cost {res.total_cost} vs CPU {cpu.total_cost}")
+    same_plan(res, TorchSolver(device="cpu").solve(pods, [pool], catalog), "headline")
     warm = {"encode_ms": [], "device_ms": [], "decode_ms": [], "wall_ms": []}
     for _ in range(5):
         r = solver.solve(pods, [pool], catalog)
@@ -516,46 +535,65 @@ def main() -> int:
           "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
           "backend": res.provenance["backend"], "device": name, "card": smi})
 
-    # 5. kernel timing at the headline shapes: the 8,192-row cap, and the
-    # rows the main path gave the kernel (held to the plain version there too)
-    t = to_device(head_arrays, ffd, dev)
+    # 5. kernel timing: the rows the main path gave the kernel (held to the
+    # plain version there too), the 8,192-row cap, config8 (solved through
+    # the entry point too, at the rows it gave the kernel) and the global
+    # branch: the whole wrapper call, the kernel's device time, and the
+    # latter per real group
+    t = tensors["headline"][0]
     N_main = int(solver.timings["n_rows"])
     main_res = call(ffd_cuda.ffd_solve, t, N_main)
     torch.cuda.synchronize()
     if int(main_res.n_open) != solver.timings["n_open"]:
         raise AssertionError("the main path gave the kernel other inputs than the headline's")
     max_err = max(max_err, compare("headline_main_rows", main_res, call(ffd.ffd_solve, t, N_main)))
+    solver8 = TorchSolver()
+    res8 = solver8.solve(pods8, [pool], catalog)
+    same_plan(res8, TorchSolver(device="cpu").solve(pods8, [pool], catalog), "config8")
+    if solver8.timings["n_rows"] != CONFIG8_ROWS:
+        raise AssertionError(f"config8 solved on {solver8.timings['n_rows']} rows, "
+                             f"timed on {CONFIG8_ROWS}")
+    shapes = {f"headline_{N_main}": (t, N_main, None, 0), "headline_8192": tensors["headline"],
+              f"config8_{CONFIG8_ROWS}": tensors["config8"],
+              "global_branch": tensors["global_branch"]}
     timing = {}
-    for N in (N_head, N_main):
-        res_n = call(ffd_cuda.ffd_solve, t, N)
-        nbytes, ops = kernel_bytes_and_ops(t, N, res_n)
+    for key, (tt, N, init_state, npre) in shapes.items():
+        res_n = call(ffd_cuda.ffd_solve, tt, N, init_state, npre)
+        nbytes, ops = kernel_bytes_and_ops(tt, N, res_n, npre)
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
-        timing[N] = {
-            "kernel_ms": time_cuda(lambda: call(ffd_cuda.ffd_solve, t, N), runs=30),
-            "plain_ms": time_cuda(lambda: call(ffd.ffd_solve, t, N), runs=5, warmup=1),
+        (G, R), real = tt["requests"].shape, int((tt["counts"] > 0).sum())
+        times = ffd_times(ffd_cuda, tt, N, init_state, npre)
+        timing[key] = {
+            "N": N, "G": G, "real_groups": real, "n_pre": npre,
+            "resident": ffd_cuda.resident(N, R), "clusters": ffd_cuda.cluster_occupancy(N, R),
+            **times, "us_per_real_group": times["device_ms"] * 1e3 / real,
+            "plain_ms": time_cuda(lambda: call(ffd.ffd_solve, tt, N, init_state, npre),
+                                  runs=3, warmup=1),
             "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         }
-    emit({"phase": "timing", "shapes": {"G": int(t["requests"].shape[0]),
-                                        "T": int(t["capacity"].shape[0]),
-                                        "R": int(t["requests"].shape[1])},
-          "rows": {str(N): v for N, v in timing.items()}, "main_rows": N_main,
-          "main_rows_parity": "exact", "launches_per_solve": launches, "card": smi})
+    emit({"phase": "timing", "shapes": timing, "main_rows": N_main,
+          "main_rows_parity": "exact", "launches_per_solve": launches,
+          "config8": {"pods": len(pods8), "placed": res8.pods_placed(),
+                      "nodes": len(res8.node_specs), "cost": res8.total_cost,
+                      "cpu_plan_equal": True},
+          "card": smi})
 
     # 6. profile: device time of one warm solve, by kernel
     emit(profile_solve(lambda: solver.solve(pods, [pool], catalog)))
 
     repack_line = screen_phases(dev, name, smi)
 
-    main = timing[N_main]  # the FFD kernel's line is at the main path's shapes
+    main = timing[f"headline_{N_main}"]  # the FFD kernel's line: the main path's shapes
     emit({"kernels": [{
         "name": "ffd", "route": "cuda",
         "source": "karpenter_provider_aws_tpu_torch/csrc/ffd.cu",
         "replaces": "karpenter_provider_aws_tpu/ops/ffd_pallas.py:66",
         "tpu_kernel": "ops/ffd_pallas.py::_kernel",
         "launches": launches, "parity": "exact", "max_abs_err": max_err,
-        "rows": N_main, "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+        "rows": N_main, "ms": main["kernel_ms"], "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
     }, repack_line]})

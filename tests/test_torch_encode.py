@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from karpenter_provider_aws_tpu_torch.interop import ARRAY_FIELDS
+from karpenter_provider_aws_tpu_torch.ops import solve_cases
 
 
 def _package(root: str) -> SimpleNamespace:
@@ -49,21 +50,7 @@ def _pool(pkg, name="default", taints=(), cats=("c", "m", "r")):
 
 def headline(pkg, n=640):
     """The 50k-pod headline generator (64 shapes, seed 0), at ``n`` pods."""
-    lbl = pkg.lbl
-    rng = np.random.RandomState(0)
-    pods = []
-    per = max(1, n // 64)
-    for i in range(64):
-        cpu_m = int(rng.choice([100, 250, 500, 1000, 2000, 4000, 8000]))
-        mem_mi = cpu_m * int(rng.choice([1, 2, 4, 8]))
-        kwargs = {}
-        r = rng.rand()
-        if r < 0.15:
-            kwargs["node_selector"] = {lbl.ARCH: "arm64"}
-        elif r < 0.25:
-            kwargs["node_selector"] = {lbl.TOPOLOGY_ZONE: str(rng.choice(["zone-a", "zone-b"]))}
-        pods += pkg.make_pods(per, f"shape{i}", {"cpu": f"{cpu_m}m", "memory": f"{mem_mi}Mi"}, **kwargs)
-    return pods, [_pool(pkg)]
+    return solve_cases.headline_pods(pkg, n), [_pool(pkg)]
 
 
 def config2(pkg, n=640):
@@ -112,7 +99,56 @@ def config3(pkg, n=500):
     return pods, [_pool(pkg)]
 
 
-CONFIGS = {"headline": headline, "config2": config2, "config3": config3}
+def config1(pkg, n=2000):
+    """config1_homogeneous: 2k identical cpu/mem pods."""
+    return pkg.make_pods(n, "web", {"cpu": "500m", "memory": "1Gi"}), [_pool(pkg)]
+
+
+def config5(pkg, n=400):
+    """config5_accelerators: GPU and Neuron pods beside cpu pods, two pools;
+    ``config5_reservations`` pre-pays part of the accelerator fleet."""
+    pods = pkg.make_pods(n // 4, "gpu", {"cpu": "4", "memory": "16Gi", "nvidia.com/gpu": 1})
+    pods += pkg.make_pods(n // 8, "neuron",
+                          {"cpu": "8", "memory": "32Gi", "aws.amazon.com/neuron": 1})
+    pods += pkg.make_pods(n - n // 4 - n // 8, "cpu", {"cpu": "1", "memory": "2Gi"})
+    return pods, [_pool(pkg), _pool(pkg, name="accel", cats=("g", "p", "inf", "trn"))]
+
+
+def config5_reservations(pkg, catalog) -> None:
+    """config5's two capacity reservations (reserved captype at price 0)."""
+    Reservation = importlib.import_module(f"{pkg.root}.catalog.reservations").Reservation
+    catalog.reservations.update([
+        Reservation(id="cr-gpu", instance_type="g5.12xlarge", zone="zone-a", count=20),
+        Reservation(id="cr-trn", instance_type="trn1.32xlarge", zone="zone-b", count=4),
+    ])
+
+
+def config6(pkg):
+    """config6_mixed_tail: dual-arch and amd64-pinned groups on 16-vcpu c/m
+    types, where each group leaves a singleton tail."""
+    lbl = pkg.lbl
+    pool = pkg.NodePool(
+        name="default",
+        requirements=[
+            pkg.Requirement(lbl.INSTANCE_CATEGORY, pkg.Operator.IN, ("c", "m")),
+            pkg.Requirement(lbl.INSTANCE_CPU, pkg.Operator.IN, ("16",)),
+        ],
+        disruption=pkg.Disruption(consolidate_after_s=None),
+    )
+    pods = pkg.make_pods(21, "dual", {"cpu": "6", "memory": "4Gi"})
+    pods += pkg.make_pods(31, "amd", {"cpu": "4500m", "memory": "4Gi"},
+                          node_selector={lbl.ARCH: "amd64"})
+    return pods, [pool]
+
+
+def config8(pkg):
+    """config8_fleet_fragmentation: 300 deployments with zipf replica counts
+    and mixed zone / capacity-type / arch pins."""
+    return solve_cases.config8_pods(pkg), [_pool(pkg)]
+
+
+CONFIGS = {"headline": headline, "config1": config1, "config2": config2, "config3": config3,
+           "config5": config5, "config6": config6, "config8": config8}
 
 
 def reference_arrays(problem) -> dict:
@@ -121,7 +157,8 @@ def reference_arrays(problem) -> dict:
 
 @pytest.mark.parametrize(
     "config,pool_index",
-    [("headline", 0), ("config2", 0), ("config2", 1), ("config3", 0)],
+    [("headline", 0), ("config1", 0), ("config2", 0), ("config2", 1), ("config3", 0),
+     ("config5", 0), ("config5", 1), ("config6", 0), ("config8", 0)],
 )
 def test_encode_byte_equal(config, pool_index, monkeypatch):
     monkeypatch.setenv("KARPENTER_TPU_MARKET", "0")
@@ -129,7 +166,10 @@ def test_encode_byte_equal(config, pool_index, monkeypatch):
     out = {}
     for pkg in (JAXPKG, TORCHPKG):
         pods, pools = build(pkg)
-        out[pkg.root] = pkg.encode.encode_problem(pods, pkg.CatalogProvider(), nodepool=pools[pool_index])
+        catalog = pkg.CatalogProvider()
+        if config == "config5":
+            config5_reservations(pkg, catalog)
+        out[pkg.root] = pkg.encode.encode_problem(pods, catalog, nodepool=pools[pool_index])
     want, got = out[JAXPKG.root], out[TORCHPKG.root]
     assert len(want.group_pods) > 0
     for name in ARRAY_FIELDS:

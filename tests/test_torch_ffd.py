@@ -19,7 +19,8 @@ from karpenter_provider_aws_tpu.ops.ffd_pallas import ffd_solve_pallas
 from karpenter_provider_aws_tpu_torch.interop import state_from_reference
 from karpenter_provider_aws_tpu_torch.ops import ffd as tffd
 from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
-from test_torch_ffd_cuda import CASES, _port, _random_problem, _torch_args
+from karpenter_provider_aws_tpu_torch.ops.ffd_cases import random_problem
+from test_torch_ffd_cuda import CASES, _port, _torch_args
 
 
 def _assert_same(ref, got, Z, C):
@@ -67,10 +68,28 @@ def test_plain_matches_xla_scan_and_pallas(name):
     _assert_same(ref, got, Z, C)
     _assert_same(_reference(case, pallas=True), got, Z, C)
     assert int(got.placed.sum()) > 0
-    if name == "row_exhaustion":
-        assert int(got.unplaced.sum()) > 0
-    if name == "pre_opened":
-        assert int(got.placed[:, :case[4]].sum()) > 0
+    N, n_pre = case[2], case[4]
+    slice_rows = -(-N // ffd_cuda.active_ctas(N, case[1][0].shape[1]))  # rows per CTA
+    placed = got.placed.numpy()
+    if name in ("row_exhaustion", "exhaustion_boundary"):
+        assert int(got.unplaced.sum()) > 0 and int(got.n_open) == N
+    if name == "exhaustion_boundary":  # the last trip crosses a slice edge
+        edge = N // slice_rows * slice_rows
+        assert slice_rows < N and 0 < edge < N
+        assert ((placed[:, edge - 1] > 0) & (placed[:, edge] > 0)).any()
+    if name in ("pre_opened", "pre_opened_capped"):
+        assert int(got.placed[:, :n_pre].sum()) > 0
+    if name == "pre_opened_capped":
+        capped = case[1][7] < (1 << 30)
+        assert capped.any() and int(placed[capped, :n_pre].sum()) == 0
+    if name == "interleaved_zero_counts":
+        zero = case[1][1] == 0
+        assert zero[1:-1].any() and not placed[zero].any() and placed[~zero].any(1).all()
+    if name == "open_span":  # an opened range and a first fit across slices
+        assert len(set(np.nonzero(placed[0])[0] // slice_rows)) == 5
+        assert len(set(np.nonzero(placed[1])[0] // slice_rows)) == 3
+    if name == "r16":
+        assert case[1][0].shape[1] == 16 and (case[1][0][:, 15] > 0).any()
 
 
 def test_init_state_is_not_modified():
@@ -96,7 +115,7 @@ def test_wrapper_takes_plain_version_on_cpu():
 def _rank_inputs(seed, ties: bool):
     rng = np.random.RandomState(seed)
     G, T, R, Z, C = 10, 70, 4, 3, 3
-    args = _random_problem(rng, G, T, R, Z, C)
+    args = random_problem(rng, G, T, R, Z, C)
     if ties:
         # many equal prices: tie order must keep the lowest type index first
         args = list(args)

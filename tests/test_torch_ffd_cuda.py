@@ -5,10 +5,16 @@ on a machine that has only PyTorch:
 
     python -m pytest --noconftest -q tests/test_torch_ffd_cuda.py
 
-The cases (a random family, row exhaustion, pre-opened rows) are the ones
+The cases are ``ops/ffd_cases.py``'s: the small ones, which
 ``tests/test_torch_ffd.py`` holds the plain version to against the JAX
-package on the CPU. Integers must be equal exactly; ``node_price`` and
-``used`` to rtol 1e-6 / atol 1e-3 (f32 accumulation order may differ).
+package on the CPU (a random family, row exhaustion, pre-opened rows,
+count-0 groups between real ones, an opened range across the kernel's
+per-CTA slices, row exhaustion across a slice edge, R = 16, pre-opened rows
+beside hostname-capped groups), and three only the card runs: the kernel's
+global-memory branch (20,480 rows, 12,000 pre-opened), T = 2,048, and a
+group that requests nothing (its fit is 2^30 a row).
+Integers must be equal exactly; ``node_price`` and ``used`` to rtol 1e-6 /
+atol 1e-3 (f32 accumulation order may differ).
 """
 
 import numpy as np
@@ -17,30 +23,7 @@ import torch
 
 from karpenter_provider_aws_tpu_torch.interop import state_from_reference
 from karpenter_provider_aws_tpu_torch.ops import ffd as tffd
-from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
-
-
-def _random_problem(rng, G, T, R, Z, C):
-    requests = np.zeros((G, R), dtype=np.float32)
-    requests[:, 0] = rng.choice([100, 250, 500, 1000, 2000], G)
-    requests[:, 1] = rng.choice([256, 512, 1024, 4096], G)
-    requests[:, 2] = 1.0  # the pods axis
-    counts = rng.randint(1, 40, G).astype(np.int32)
-    compat = rng.rand(G, T) < 0.7
-    compat[:, 0] = True
-    capacity = np.zeros((T, R), dtype=np.float32)
-    capacity[:, 0] = rng.choice([4000, 8000, 16000, 32000], T)
-    capacity[:, 1] = rng.choice([8192, 16384, 65536], T)
-    capacity[:, 2] = rng.choice([29, 58, 110, 250], T)
-    price = np.where(
-        compat, rng.uniform(0.05, 3.0, (G, T)).astype(np.float32), np.inf
-    ).astype(np.float32)
-    group_window = rng.rand(G, Z, C) < 0.8
-    group_window[:, 0, 0] = True
-    type_window = rng.rand(T, Z, C) < 0.8
-    type_window[:, 0, 0] = True
-    mpn = np.where(rng.rand(G) < 0.2, rng.randint(1, 5, G), 1 << 30).astype(np.int32)
-    return requests, counts, compat, capacity, price, group_window, type_window, mpn
+from karpenter_provider_aws_tpu_torch.ops import ffd_cases, ffd_cuda
 
 
 def _torch_args(args, device="cpu"):
@@ -53,41 +36,8 @@ def _torch_args(args, device="cpu"):
             t(tffd.pack_window_bits(gw)), t(tffd.pack_window_bits(tw))), t(mpn)
 
 
-def _pre_opened(rng, capacity, tw, N, R, Z, C, n_pre):
-    T = capacity.shape[0]
-    node_type0 = np.zeros(N, dtype=np.int32)
-    node_price0 = np.zeros(N, dtype=np.float32)
-    used0 = np.zeros((N, R), dtype=np.float32)
-    cap0 = np.zeros((N, R), dtype=np.float32)
-    win0 = np.zeros((N, Z, C), dtype=bool)
-    for i in range(n_pre):
-        t = rng.randint(T)
-        node_type0[i] = t
-        cap0[i] = capacity[t]
-        used0[i] = capacity[t] * rng.uniform(0.2, 0.6)
-        win0[i] = tw[t]
-    return node_type0, node_price0, used0, cap0, win0
-
-
-def _cases():
-    """(name, args, max_nodes, init arrays or None, n_pre, Z, C)."""
-    out = []
-    for seed in (0, 1, 2, 3):
-        rng = np.random.RandomState(seed)
-        out.append((f"random{seed}", _random_problem(rng, 12, 40, 4, 3, 3), 256, None, 0, 3, 3))
-    rng = np.random.RandomState(7)
-    args = list(_random_problem(rng, 8, 10, 4, 2, 3))
-    args[1] = (args[1] * 50).astype(np.int32)  # overflow 16 rows
-    out.append(("row_exhaustion", tuple(args), 16, None, 0, 2, 3))
-    rng = np.random.RandomState(11)
-    args = list(_random_problem(rng, 6, 20, 4, 3, 3))
-    args[7][:] = 1 << 30  # pre-row fill requires uncapped groups
-    init = _pre_opened(rng, args[3], args[6], 128, 4, 3, 3, 5)
-    out.append(("pre_opened", tuple(args), 128, init, 5, 3, 3))
-    return out
-
-
-CASES = {c[0]: c for c in _cases()}
+#: name -> (name, args, max_nodes, init arrays or None, n_pre, Z, C)
+CASES = {name: (name, *case) for name, case in ffd_cases.small_cases().items()}
 
 
 def _port(case, solve, device="cpu"):
@@ -103,7 +53,9 @@ def _port(case, solve, device="cpu"):
 def test_cuda_kernel_matches_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    for name, case in sorted(CASES.items()):
+    card = {name: (name, *case) for name, case in ffd_cases.card_cases().items()}
+    assert not ffd_cuda.resident(card["global_branch"][2], 10)
+    for name, case in sorted({**CASES, **card}.items()):
         launches = ffd_cuda.LAUNCHES
         got = _port(case, ffd_cuda.ffd_solve, device="cuda")
         torch.cuda.synchronize()

@@ -14,7 +14,7 @@ from karpenter_provider_aws_tpu.scheduling import TPUSolver
 from karpenter_provider_aws_tpu.scheduling.solver import ExistingNode as JExisting
 from karpenter_provider_aws_tpu_torch.scheduling import ExistingNode as TExisting
 from karpenter_provider_aws_tpu_torch.scheduling import TorchSolver
-from test_torch_encode import JAXPKG, TORCHPKG, config2, headline
+from test_torch_encode import CONFIGS, JAXPKG, TORCHPKG, config2, config5_reservations, headline
 
 
 @pytest.fixture(autouse=True)
@@ -83,6 +83,24 @@ def test_same_plan_as_tpu_solver(config, existing):
     assert got.total_cost == pytest.approx(want.total_cost, rel=1e-6)
     assert got.provenance["backend"] == "torch-plain"
     assert set(got.provenance["timings"]) >= {"encode_ms", "device_ms", "decode_ms"}
+
+
+@pytest.mark.parametrize("config", ["config1", "config3", "config5", "config6", "config8"])
+def test_same_plan_as_tpu_solver_on_the_solve_configs(config):
+    """The reference's solve configs end to end (config5 with its two
+    capacity reservations, as the static reserved column the market-off
+    catalog encodes)."""
+    results = {}
+    for pkg, solver in ((JAXPKG, TPUSolver()), (TORCHPKG, TorchSolver(device="cpu"))):
+        pods, pools = CONFIGS[config](pkg)
+        catalog = pkg.CatalogProvider()
+        if config == "config5":
+            config5_reservations(pkg, catalog)
+        results[pkg.root] = solver.solve(pods, pools, catalog)
+    want, got = results[JAXPKG.root], results[TORCHPKG.root]
+    assert got.pods_placed() == len(pods) - len(got.unschedulable) and got.pods_placed() > 0
+    assert _plan(got) == _plan(want)
+    assert got.total_cost == pytest.approx(want.total_cost, rel=1e-6)
 
 
 @pytest.mark.parametrize("config", ["headline", "config3"])
