@@ -8,8 +8,9 @@ JSON line (any failure exits non-zero):
   1. probe   — device name, compute capability (must be 9.0), nvidia-smi;
   2. build   — compile every kernel under karpenter_provider_aws_tpu_torch/csrc
                (one nvcc per source, all started together); ptxas's
-               registers, shared memory and spills, each source's sha256,
-               and the FFD kernel's cluster occupancy on both branches;
+               registers, shared memory and spills, each source's full
+               sha256, and the FFD kernel's cluster occupancy on both
+               branches;
   3. parity  — the FFD kernel against its plain PyTorch version on the same
                CUDA tensors: ``ops/ffd_cases.py``'s cases (a random family,
                row exhaustion, pre-opened rows, count-0 groups between real
@@ -34,20 +35,30 @@ JSON line (any failure exits non-zero):
                the global-memory branch, with real groups and microseconds
                of device time per real group;
   6. profile — device time by kernel over one warm solve, and the idle share;
-  7. repack_parity — the repack kernel against its plain PyTorch version on
-               the same CUDA tensors: ``ops/repack_cases.py``'s random family
-               (seeds 0-7), candidate subset, empty node, nothing-fits,
-               self-exclusion and float hostname cap, its global-scratch
-               cases at N = 8,192 (one pass of the kernel's node loop) and
-               N = 12,000 (two passes), and config4 (``ok`` exact);
+  7. repack_parity — the repack kernels against their plain PyTorch version
+               on the same CUDA tensors: ``ops/repack_cases.py``'s random
+               family (seeds 0-7), candidate subset, empty node,
+               nothing-fits, self-exclusion and float hostname cap, its
+               table-design cases (``long_touch``: hundreds of rows filled
+               by one candidate, ``repeat_group``, ``negative_count``,
+               ``no_groups``), its wide cases at N = 8,192 and N = 12,000
+               (sparse targets, thousands of rows apart), its dense cluster
+               (5,000 large nodes, 150-230 pods in 8 live slots each) and
+               config4 (``ok`` exact);
   8. consolidation — the screen's main path on config4 (the 5,000-node
                ``_synth_cluster`` of the repo's benchmarks): encode_cluster,
-               consolidatable (must launch the kernel, pass 5,000 nodes and
-               equal the CPU mask), the delete prefix (must be 4,306), warm
-               screen times, and one screen under the profiler;
-  9. repack_timing — the kernel, the same launch with no live slot (its
-               private copies alone) and the plain version at config4's
-               shapes and at N = 8,192, beside the bound;
+               consolidatable (must launch the repack kernels, pass 5,000
+               nodes and equal the CPU mask), the delete prefix (must be
+               4,306), warm screen times, and one screen under the profiler;
+  9. repack_timing — at config4's shapes, N = 8,192, N = 12,000 and the
+               dense cluster: the wrapper's time per call (``kernel_ms``:
+               CUDA events around the whole call), the three kernels'
+               device time per call (``device_ms``, from the profiler's
+               CUDA records, with how many it kept) and each one's
+               (``table_ms``, ``carry_ms``, ``verdict_ms``), the plain
+               version, the bound (the inputs read and ``ok`` written once;
+               the table's own traffic beside it as ``table_bytes``) and
+               the old per-node walk's count (``walk_ops``, ``walk_ms``);
 then the kernels line, the card's name and power limit, and the result line.
 It needs the repository's package beside it and a CUDA device.
 """
@@ -105,11 +116,12 @@ def to_device(arrays, ffd, device):
     return t
 
 
-def device_ms(fn, key: str, runs: int) -> tuple[float, int]:
-    """Mean device time (ms) of the kernel whose name holds ``key`` over
-    ``runs`` calls of ``fn``, from the profiler's CUDA activity records (the
-    kernel alone, without the wrapper's host work or its other launches),
-    and how many records the profiler kept: the mean is over those."""
+def device_ms(fn, keys: tuple, runs: int) -> tuple[dict, int]:
+    """Mean device time (ms) per call of each kernel whose name holds one of
+    ``keys``, over ``runs`` calls of ``fn``, from the profiler's CUDA
+    activity records (the kernels alone, without the wrapper's host work or
+    its other launches), and the fewest records the profiler kept of any of
+    them: each mean is over its own records."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -120,15 +132,19 @@ def device_ms(fn, key: str, runs: int) -> tuple[float, int]:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    us, count = 0.0, 0
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and key in evt.key:
-            t = getattr(evt, "self_device_time_total", None)
-            us += evt.self_cuda_time_total if t is None else t
-            count += evt.count
-    if not 1 <= count <= runs:
-        raise AssertionError(f"the profiler saw {count} launches of {key}, expected {runs}")
-    return us / count / 1e3, count
+    means, kept = {}, runs
+    for key in keys:
+        us, count = 0.0, 0
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA and key in evt.key:
+                t = getattr(evt, "self_device_time_total", None)
+                us += evt.self_cuda_time_total if t is None else t
+                count += evt.count
+        if not 1 <= count <= runs:
+            raise AssertionError(f"the profiler saw {count} launches of {key}, expected {runs}")
+        means[key] = us / count / 1e3
+        kept = min(kept, count)
+    return means, kept
 
 
 def ffd_times(ffd_cuda, t, N, init=None, n_pre=0, runs: int = 30) -> dict:
@@ -139,9 +155,28 @@ def ffd_times(ffd_cuda, t, N, init=None, n_pre=0, runs: int = 30) -> dict:
     def kernel():
         return call(ffd_cuda.ffd_solve, t, N, init, n_pre)
 
-    dev_ms, records = device_ms(kernel, "ffd_kernel", runs)
-    return {"kernel_ms": time_cuda(kernel, runs=runs), "device_ms": dev_ms,
+    dev_ms, records = device_ms(kernel, ("ffd_kernel",), runs)
+    return {"kernel_ms": time_cuda(kernel, runs=runs), "device_ms": dev_ms["ffd_kernel"],
             "device_records": records, "runs": runs}
+
+
+#: the repack screen's kernels (``csrc/repack.cu``): the table, its carry
+#: pass, the verdicts
+REPACK_KERNELS = ("repack_table_kernel", "repack_carry_kernel", "repack_verdict_kernel")
+
+
+def repack_times(repack_cuda, rt, keys=REPACK_KERNELS, runs: int = 30) -> dict:
+    """The repack wrapper's times on one screen: ``kernel_ms``, the median
+    per-call CUDA-event time of the whole wrapper call (its allocations and
+    host work included), and ``device_ms``, its kernels' device time per
+    call summed, with the profiler's records kept of ``runs`` and each
+    kernel's own time under its name."""
+    def kernel():
+        return repack_cuda.repack_check(*rt)
+
+    per, records = device_ms(kernel, keys, runs)
+    return {"kernel_ms": time_cuda(kernel, runs=runs), "device_ms": sum(per.values()),
+            "device_records": records, "runs": runs, "per_kernel_ms": per}
 
 
 def call(solve, t, N, init=None, n_pre=0):
@@ -218,22 +253,33 @@ def time_cuda(fn, runs: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def repack_bytes_and_ops(t) -> tuple[int, int]:
-    """Bytes the screen must move (each input read once, the ``ok`` mask
-    written once) and the f32 operations this run's data needs: for every
-    candidate's live slot (count > 0) of group g, per node the fit over the
-    resources g requests (add, divide, min: 3 per such axis; the others are
-    skipped), then the clamp, the cap, the self mask, the scan and the
-    placement (6). The update touches only the rows that take pods (at most
-    the slot's count) and is left out."""
+def repack_bytes_and_ops(t) -> dict:
+    """The screen's work, and the old walk's beside it. ``bytes``: each
+    input read once and the ``ok`` mask written once (what the function
+    needs; the kernels' own [G, N] tables, the int32 fit and the int64 list
+    of rows with room, each written once and read once, are printed beside
+    it as ``table_bytes`` and not counted). ``ops``: the
+    f32 operations this run's data needs: per group and node the fit over
+    the resources the group requests (add, divide, min: 3 per such axis;
+    the others are skipped), then the clamp, the cap and the scan (6); then
+    per live slot (count > 0) of each candidate, 4 (the self term, the sum,
+    the min with the count, the leftover). ``walk_ops``: the old walk's
+    count, the fit, scan and placement over every node for every
+    candidate's live slot."""
     free, requests, gids, gcounts, cap, cand = t
     N = free.shape[0]
+    G = requests.shape[0]
     nbytes = sum(x.numel() * x.element_size() for x in t) + cand.numel()  # ok: 1 byte each
     rows = cand.long()
     live = gcounts[rows] > 0
     axes = (requests > 0).sum(dim=1)  # [G] resources each group requests
-    per_node = 3 * axes[gids[rows][live].long()] + 6
-    return nbytes, int(per_node.sum()) * N
+    per_node = 3 * axes + 6
+    ops = int(per_node.sum()) * N + 4 * int(live.sum())
+    walk_ops = int(per_node[gids[rows][live].long()].sum()) * N
+    return {"bytes": nbytes, "table_bytes": 2 * G * N * (4 + 8), "ops": ops,
+            "walk_ops": walk_ops,
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / F32_FLOPS * 1e3,
+            "walk_ms": walk_ops / F32_FLOPS * 1e3}
 
 
 def config4_cluster(n_nodes=5000, pods_per_node=8):
@@ -308,18 +354,19 @@ def profile_solve(solve) -> dict:
 
 
 def screen_phases(dev, name: str, smi: str) -> dict:
-    """Phases 7-9: the repack kernel against its plain version, the
-    consolidation screen's main path on config4, and the kernel's timing.
-    Returns the repack kernel's entry of the kernels line."""
+    """Phases 7-9: the repack kernels against their plain version, the
+    consolidation screen's main path on config4, and the kernels' timing.
+    Returns the repack kernels' entry of the kernels line."""
     from karpenter_provider_aws_tpu_torch.ops import consolidate, repack_cases, repack_cuda
 
-    # 7. repack parity: kernel vs plain version on the same CUDA tensors (the
+    # 7. repack parity: kernels vs plain version on the same CUDA tensors (the
     # config4 case from its own encode, so the main path below uploads anew)
     t_build = time.perf_counter()
     cluster4, catalog4 = config4_cluster()
     cluster_build_s = time.perf_counter() - t_build
     config4_arrays = consolidate.screen_arrays(consolidate.encode_cluster(cluster4, catalog4))
-    cases = {**repack_cases.small_cases(seeds=8), **repack_cases.large_cases()}
+    cases = {**repack_cases.small_cases(seeds=8), **repack_cases.path_cases(),
+             **repack_cases.large_cases(), **repack_cases.dense_cases()}
     cases["config4"] = tuple(config4_arrays[k] for k in (
         "free", "requests", "group_ids", "group_counts", "cap", "candidates"))
     rcases, rtensors, repack_err = {}, {}, 0.0
@@ -335,16 +382,15 @@ def screen_phases(dev, name: str, smi: str) -> dict:
                                  f"{int((got != want).sum())} of {got.numel()} candidates")
         N_c, R_c = arrays[0].shape
         rcases[cname] = {"N": N_c, "R": R_c, "C": int(arrays[5].shape[0]),
-                         "ok": int(got.sum()), "max_abs_err": err,
-                         "tiles": -(-N_c // repack_cuda.TILE_NODES),
-                         "global_scratch": repack_cuda.repack_smem_bytes(N_c, R_c)
-                         > repack_cuda.SMEM_LIMIT_BYTES}
+                         "S": int(arrays[2].shape[1]), "ok": int(got.sum()),
+                         "max_abs_err": err,
+                         "compat_density": float((arrays[4] > 0).mean()) if arrays[4].size
+                         else 0.0}
         rtensors[cname] = rt
-    for cname, tiles in (("global_scratch_8192", 1), ("two_tiles_12000", 2)):
-        c = rcases[cname]
-        if not c["global_scratch"] or c["tiles"] != tiles or not 0 < c["ok"] < c["C"]:
-            raise AssertionError(f"{cname}: expected the global scratch over {tiles} "
-                                 f"tile(s) and split verdicts, got {c}")
+    for cname in ("global_scratch_8192", "two_tiles_12000"):
+        c = rcases[cname]  # sparse targets, thousands of rows apart; verdicts split
+        if c["N"] < 8192 or not 0 < c["compat_density"] < 0.002 or not 0 < c["ok"] < c["C"]:
+            raise AssertionError(f"{cname}: expected sparse targets and split verdicts, got {c}")
     emit({"phase": "repack_parity", "parity": "exact", "max_abs_err": repack_err,
           "cases": rcases})
 
@@ -397,42 +443,41 @@ def screen_phases(dev, name: str, smi: str) -> dict:
           "backend": first_screen["backend"], "device": name, "card": smi})
     emit(prof)
 
-    # 9. repack timing at config4's shapes (the main path's own tensors) and
-    # at N = 8,192 (the global scratch)
+    # 9. repack timing at config4's shapes (the main path's own tensors), at
+    # N = 8,192, at N = 12,000 and on the dense cluster
     main4 = ct.__dict__["_screen_device"][dev]
     main4 = [main4[k] for k in ("free", "requests", "group_ids", "group_counts", "cap",
                                 "candidates")]
     rtiming = {}
     for cname, rt in (("config4", main4),
-                      ("global_scratch_8192", rtensors["global_scratch_8192"])):
-        nbytes, ops = repack_bytes_and_ops(rt)
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
-        no_slots = rt[:3] + [torch.zeros_like(rt[3])] + rt[4:]  # every slot skipped
+                      ("global_scratch_8192", rtensors["global_scratch_8192"]),
+                      ("two_tiles_12000", rtensors["two_tiles_12000"]),
+                      ("dense_5000", rtensors["dense_5000"])):
+        work = repack_bytes_and_ops(rt)
+        times = repack_times(repack_cuda, rt)
+        per = times.pop("per_kernel_ms")
         rtiming[cname] = {
             "N": int(rt[0].shape[0]), "C": int(rt[5].shape[0]), "S": int(rt[2].shape[1]),
-            "kernel_ms": time_cuda(lambda: repack_cuda.repack_check(*rt), runs=30),
-            # the same launch with no live slot: the per-candidate private
-            # copy of free and the grid-stride loop alone
-            "copy_only_ms": time_cuda(lambda: repack_cuda.repack_check(*no_slots), runs=30),
+            **times, "table_ms": per["repack_table_kernel"],
+            "carry_ms": per["repack_carry_kernel"], "verdict_ms": per["repack_verdict_kernel"],
             "plain_ms": time_cuda(lambda: consolidate.repack_check(*rt), runs=5, warmup=1),
-            "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "global_scratch": repack_cuda.repack_smem_bytes(*rt[0].shape)
-            > repack_cuda.SMEM_LIMIT_BYTES,
+            **work, "bound_ms": max(work["bytes_ms"], work["ops_ms"]),
+            "bound_by": "bytes" if work["bytes_ms"] >= work["ops_ms"] else "operations",
         }
     emit({"phase": "repack_timing", "shapes": rtiming, "launches_per_screen": repack_launches,
           "library_ms": None, "card": smi})
 
-    r4 = rtiming["config4"]  # the repack kernel's line is at config4's shapes
+    r4 = rtiming["config4"]  # the repack kernels' line is at config4's shapes
     return {
         "name": "repack", "route": "cuda",
         "source": "karpenter_provider_aws_tpu_torch/csrc/repack.cu",
         "replaces": "karpenter_provider_aws_tpu/ops/repack_pallas.py:49",
         "tpu_kernel": "ops/repack_pallas.py::_kernel",
         "launches": repack_launches, "parity": "exact", "max_abs_err": repack_err,
-        "nodes": r4["N"], "ms": r4["kernel_ms"], "plain_ms": r4["plain_ms"],
+        "nodes": r4["N"], "ms": r4["kernel_ms"], "device_ms": r4["device_ms"],
+        "device_records": r4["device_records"], "plain_ms": r4["plain_ms"],
         "bound_ms": r4["bound_ms"], "bound_by": r4["bound_by"],
+        "walk_ms": r4["walk_ms"],
         "library_ms": None,
     }
 
@@ -467,7 +512,7 @@ def main() -> int:
              for k, v in _build.BUILD_LOGS.items()}
     emit({"phase": "build", "seconds": seconds, "wall_s": time.perf_counter() - t0,
           "ptxas": ptxas,
-          "sha256": {p.name: hashlib.sha256(p.read_bytes()).hexdigest()[:16]
+          "sha256": {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
                      for p in sorted(_build.CSRC.glob("*.cu"))},
           # clusters of the FFD kernel the card holds at once, on each branch
           "ffd_clusters": {"resident_8192x10": ffd_cuda.cluster_occupancy(8192, 10),

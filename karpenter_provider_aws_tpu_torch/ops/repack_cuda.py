@@ -1,12 +1,20 @@
-"""The consolidation repack screen as one CUDA kernel launch (``csrc/repack.cu``).
+"""The consolidation repack screen as three CUDA kernel launches (``csrc/repack.cu``).
 
-The counterpart of the JAX package's ``ops/repack_pallas.py``: every
-candidate's repack proof in one launch, each block holding its candidate's
-private free matrix in shared memory (or, past the budget, in a global
-scratch). ``repack_check`` takes the same arguments as the plain
-``ops.consolidate.repack_check`` and returns the same ``ok[C]``. Tensors on
-the CPU go through the plain version; tensors on a CUDA device launch the
-kernel, or raise. There is no fallback from one to the other.
+The counterpart of the JAX package's ``ops/repack_pallas.py``. The first
+launches build a fit table on the base free capacity, once per screen (per
+group and node the fit's int64 prefix, in tiles of 1,024 nodes and a short
+pass that carries the tiles' sums and lists each group's rows with room);
+the last gives every candidate its verdict from that table, one warp per
+candidate. A warp keeps, per earlier slot of its candidate, only the row
+where the slot's first fit stopped and what it placed there, and replays a
+row's free from those where it needs it, so no bound is put on the rows a
+candidate fills. ``repack_check`` takes the same arguments as the plain
+``ops.consolidate.repack_check`` and returns the same ``ok[C]``, for
+requests and caps that are not negative (as the encoder writes them): the
+kernels trap on a negative or NaN request or float cap, and the error
+raises at the next synchronisation, as any fault on the device does.
+Tensors on the CPU go through the plain version; tensors on a CUDA device
+launch the kernels, or raise. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -17,38 +25,33 @@ import torch
 
 from . import _build
 
-#: kernel launches since the last reset (a run sets it to 0 and reads it)
+#: screens launched on the kernels since the last reset (a run sets it to 0
+#: and reads it); a screen is the table's launches and the verdicts'
 LAUNCHES = 0
 
 _MAX_R = 16
-_THREADS = 1024
-#: nodes per pass of the kernel's node loop (``kThreads * kPer``); a larger
-#: cluster carries the placements' prefix from pass to pass
-TILE_NODES = _THREADS * 8
-#: shared memory one block may use on Hopper (dynamic + static)
-SMEM_LIMIT_BYTES = 232_448
-#: shared memory the kernel's static scratch may take (``kStaticReserve``)
-_STATIC_SMEM_BYTES = 512
+#: most slots a node's table may have: one warp's slot table (96 bytes a
+#: slot, ``sizeof(Slot)``) in one block's shared memory (``kSmemLimit``)
+MAX_SLOTS = 232448 // 96
+_TABLE_TILE = 1024  # nodes a table block takes (``kTableThreads``)
 _CAP_KIND = {torch.bool: 0, torch.uint16: 1, torch.float32: 2}
 
 
-def repack_smem_bytes(n_nodes: int, n_res: int) -> int:
-    """Shared memory a block needs to hold a candidate's private free
-    matrix plus the kernel's static scratch (the counterpart of the TPU's
-    ``repack_vmem_bytes``). Past ``SMEM_LIMIT_BYTES`` the kernel runs on a
-    global scratch instead."""
-    return n_nodes * n_res * 4 + _STATIC_SMEM_BYTES
+_LIB = None
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("repack")
-    lib.repack_launch.restype = ctypes.c_int
-    lib.repack_launch.argtypes = (
-        [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-    )
-    lib.repack_error_string.restype = ctypes.c_char_p
-    lib.repack_error_string.argtypes = [ctypes.c_int]
-    return lib
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("repack")
+        lib.repack_launch.restype = ctypes.c_int
+        lib.repack_launch.argtypes = (
+            [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+        )
+        lib.repack_error_string.restype = ctypes.c_char_p
+        lib.repack_error_string.argtypes = [ctypes.c_int]
+        _LIB = lib
+    return _LIB
 
 
 def _check(name: str, t: torch.Tensor, dtypes: tuple, shape: tuple, device) -> None:
@@ -71,9 +74,10 @@ def repack_check(
     candidates: torch.Tensor,    # [C] int32 node indices
     chunk: int = 512,
 ) -> torch.Tensor:
-    """ok[C] (bool): the kernel for CUDA tensors, the plain version for CPU
+    """ok[C] (bool): the kernels for CUDA tensors, the plain version for CPU
     tensors (``chunk`` sizes the plain version's candidate batches; the
-    kernel takes every candidate in one launch)."""
+    kernels take every candidate in one screen). ``requests`` and a float
+    ``cap`` must hold no negative or NaN value: the kernels trap on one."""
     if free.device.type == "cpu":
         from .consolidate import repack_check as plain
 
@@ -94,6 +98,8 @@ def _launch(free, requests, group_ids, group_counts, cap, candidates) -> torch.T
         raise ValueError(f"R={R} resource axes; the kernel takes 1..{_MAX_R}")
     if N < 1:
         raise ValueError("the screen needs at least one node")
+    if S > MAX_SLOTS:
+        raise ValueError(f"S={S} slots a node; the kernel takes up to {MAX_SLOTS}")
     for name, t, dtypes, shape in (
         ("free", free, (torch.float32,), (N, R)),
         ("requests", requests, (torch.float32,), (G, R)),
@@ -106,20 +112,19 @@ def _launch(free, requests, group_ids, group_counts, cap, candidates) -> torch.T
     ok = torch.empty(C, dtype=torch.bool, device=dev)
     if C == 0:
         return ok
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = min(C, 2 * sms)
-    scratch = None
-    if repack_smem_bytes(N, R) > SMEM_LIMIT_BYTES:
-        scratch = torch.empty((grid, N, R), dtype=torch.float32, device=dev)
+    # int64 words: the sums of the table's tiles of _TABLE_TILE nodes, each
+    # group's rows with room [G, N], their count [G] and the group's total
+    # fit [G], then the fit [G, N] of int32
+    tiles = -(-N // _TABLE_TILE)
+    work = torch.empty(G * (tiles + N + 2) + -(-G * N // 2), dtype=torch.int64, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.repack_launch(
-            grid, C, N, R, S, G,
+            C, N, R, S, G,
             free.data_ptr(), requests.data_ptr(), group_ids.data_ptr(),
             group_counts.data_ptr(), cap.data_ptr(), _CAP_KIND[cap.dtype],
-            candidates.data_ptr(), ok.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None, stream,
+            candidates.data_ptr(), ok.data_ptr(), work.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(

@@ -399,28 +399,6 @@ def test_backend_is_a_function_of_the_device():
         tcons._repack_backend(torch.device("meta"))
 
 
-def test_smem_budget_picks_the_global_scratch_past_the_limit():
-    assert repack_cuda.repack_smem_bytes(5000, 10) <= repack_cuda.SMEM_LIMIT_BYTES
-    assert repack_cuda.repack_smem_bytes(8192, 10) > repack_cuda.SMEM_LIMIT_BYTES
-    assert repack_cuda.repack_smem_bytes(100, 10) < repack_cuda.repack_smem_bytes(101, 10)
-
-
-def test_large_cases_take_the_global_scratch_in_one_and_two_tiles():
-    """The kernel's cases past the shared-memory budget: one at exactly one
-    pass of its node loop, one over two passes with sparse targets in the
-    first, so the placements' prefix must carry across."""
-    tiles = {}
-    for name, (free, _req, _gids, gcounts, cap, cand) in repack_cases.large_cases().items():
-        N, R = free.shape
-        assert repack_cuda.repack_smem_bytes(N, R) > repack_cuda.SMEM_LIMIT_BYTES, name
-        assert cand.tolist() == list(range(N)) and (gcounts > 0).any(axis=1).mean() > 0.5
-        tiles[name] = -(-N // repack_cuda.TILE_NODES)
-        if tiles[name] > 1:
-            first = cap[:, :repack_cuda.TILE_NODES].mean()
-            assert 0 < first < cap[:, repack_cuda.TILE_NODES:].mean()
-    assert sorted(tiles.values()) == [1, 2]
-
-
 def test_wrapper_runs_the_plain_version_on_cpu_tensors_only():
     args = [torch.from_numpy(a) for a in REPACK_CASES["float_cap"]]
     launches = repack_cuda.LAUNCHES
