@@ -1,5 +1,5 @@
 """The instance-type catalog: capacities, allocatable math, static prices,
-offerings (the JAX package's ``catalog/``, static market only)."""
+offerings, and the market model (the JAX package's ``catalog/``)."""
 
 from .instancetypes import (  # noqa: F401
     InstanceType,
@@ -8,5 +8,5 @@ from .instancetypes import (  # noqa: F401
     DEFAULT_ZONES,
     DEFAULT_REGION,
 )
-from .pricing import PricingProvider  # noqa: F401
+from .pricing import MarketModel, PricingProvider  # noqa: F401
 from .provider import CatalogProvider, CatalogTensors, OverheadOptions  # noqa: F401

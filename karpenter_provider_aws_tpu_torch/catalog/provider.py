@@ -36,14 +36,6 @@ from .instancetypes import DEFAULT_ZONES, InstanceType, generate_catalog
 from .pricing import PricingProvider
 
 
-def market_enabled() -> bool:
-    """The reference's market kill switch (``KARPENTER_TPU_MARKET``),
-    read per call."""
-    import os
-
-    return os.environ.get("KARPENTER_TPU_MARKET", "1") != "0"
-
-
 @dataclass
 class OverheadOptions:
     """Knobs for capacity -> allocatable (parity: options.go VMMemoryOverheadPercent
@@ -169,7 +161,34 @@ class CatalogProvider:
             self.reservations.seq_num(),
             self.overhead.vm_memory_overhead_percent,
             self.overhead.max_pods,
+        ) + self._market_fragment()
+
+    def _market_fragment(self) -> tuple:
+        """The clock-driven part of the cache key. Everything slot- or
+        price-shaped already rides the seqnums above; only two things move
+        with the clock alone — the MarketModel tick (reclaim premiums are a
+        function of it) and bounded-window open/close transitions. Empty
+        () when the market is off or there is no market state, so the key
+        is the exact static-market tuple and cached tensors keep hitting."""
+        from ..market import (
+            market_enabled,
+            windows_cache_key,
+            windows_from_reservations,
         )
+
+        if not market_enabled():
+            return ()
+        frag: list = []
+        now = self._clock.now()
+        model = self.pricing.market
+        if model is not None:
+            frag.append(("tick", model.tick_index(now)))
+        wkey = windows_cache_key(
+            windows_from_reservations(self.reservations.list()), now
+        )
+        if wkey:
+            frag.append(("win", wkey))
+        return tuple(frag)
 
     # -- tensor exports (the device-facing view) ------------------------------
     def tensors(self) -> "CatalogTensors":
@@ -186,16 +205,12 @@ class CatalogProvider:
         return built
 
     def _build_tensors(self) -> "CatalogTensors":
-        if market_enabled() and (
-            self.pricing.market is not None or self.reservations.list()
-        ):
-            # reservation windows and the reclaim premium change the price
-            # tensor; this package encodes only the static market
-            raise NotImplementedError(
-                "market state (a market model or reservation windows with "
-                "KARPENTER_TPU_MARKET on) is not supported by the torch "
-                "catalog yet; set KARPENTER_TPU_MARKET=0"
-            )
+        from ..market import (
+            apply_window_columns,
+            market_enabled,
+            windows_from_reservations,
+        )
+
         with self._lock:
             T, Z = len(self._types), len(self.zones)
             zone_idx = {z: i for i, z in enumerate(self.zones)}
@@ -203,6 +218,9 @@ class CatalogProvider:
             price = np.full((T, Z, lbl.NUM_CAPACITY_TYPES), np.inf, dtype=np.float32)
             avail = np.zeros((T, Z, lbl.NUM_CAPACITY_TYPES), dtype=bool)
             names = tuple(t.name for t in self._types)
+            use_market = market_enabled()
+            model = self.pricing.market if use_market else None
+            now = self._clock.now()
             for ti, it in enumerate(self._types):
                 C[ti] = self.allocatable(it).v
                 for o in it.offerings:
@@ -221,24 +239,42 @@ class CatalogProvider:
                         if ci == 0
                         else self.pricing.spot_price(it, o.zone)
                     )
+                    if model is not None and ci == lbl.SPOT_INDEX:
+                        # reclaim-risk premium, folded into the price VALUE
+                        # so every consumer (FFD sort, consolidation screen,
+                        # replacement paths) arbitrages the same effective
+                        # spot, and no tensor changes shape
+                        p = p * (1.0 + model.reclaim_lambda
+                                 * model.reclaim_probability(it.name, o.zone, now))
                     price[ti, zi, ci] = p
                     avail[ti, zi, ci] = live
             # Reserved offerings come from the resolved reservation store,
             # not the type's own offering list: committed price (0 for a
-            # plain ODCR — already paid) while slots remain, ICE mask on top
-            # (the reference's KARPENTER_TPU_MARKET=0 encoding).
-            reserved_remaining: dict[tuple[str, str], int] = {}
-            for r in self.reservations.list():
-                k = (r.instance_type, r.zone)
-                reserved_remaining[k] = reserved_remaining.get(k, 0) + r.remaining
-            for ti, it in enumerate(self._types):
-                for zi, zone in enumerate(self.zones):
-                    if reserved_remaining.get((it.name, zone), 0) > 0:
-                        ci = lbl.RESERVED_INDEX
-                        price[ti, zi, ci] = 0.0
-                        avail[ti, zi, ci] = not self.unavailable.is_unavailable(
-                            it.name, zone, lbl.CAPACITY_TYPE_RESERVED
-                        )
+            # plain ODCR — already paid) while slots remain, ICE mask on top.
+            if use_market:
+                # window encoding: honors [start_s, end_s) bounds and slot
+                # exhaustion; a plain open-ended reservation encodes exactly
+                # like the static branch below
+                apply_window_columns(
+                    price, avail, names, self.zones,
+                    windows_from_reservations(self.reservations.list()),
+                    now, unavailable=self.unavailable,
+                )
+            else:
+                # KARPENTER_TPU_MARKET=0: the static-market encoding, kept
+                # verbatim for byte-identity
+                reserved_remaining: dict[tuple[str, str], int] = {}
+                for r in self.reservations.list():
+                    k = (r.instance_type, r.zone)
+                    reserved_remaining[k] = reserved_remaining.get(k, 0) + r.remaining
+                for ti, it in enumerate(self._types):
+                    for zi, zone in enumerate(self.zones):
+                        if reserved_remaining.get((it.name, zone), 0) > 0:
+                            ci = lbl.RESERVED_INDEX
+                            price[ti, zi, ci] = 0.0
+                            avail[ti, zi, ci] = not self.unavailable.is_unavailable(
+                                it.name, zone, lbl.CAPACITY_TYPE_RESERVED
+                            )
             return CatalogTensors(
                 names=names,
                 zones=self.zones,

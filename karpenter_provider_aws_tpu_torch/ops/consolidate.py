@@ -1,30 +1,39 @@
-"""The consolidation screen: batched "remove node i — do its pods fit
-elsewhere?" on the device, and the host validator behind it.
+"""The consolidation pass's device and host ops: batched "remove node i — do
+its pods fit elsewhere?" on the device, the host validator behind it, and the
+replacement paths.
 
-The counterpart of the JAX package's ``ops/consolidate.py`` for the screen
-(BASELINE config #4: multi-node consolidation of 5k live nodes):
+The counterpart of the JAX package's ``ops/consolidate.py`` (BASELINE config
+#4: multi-node consolidation of 5k live nodes):
 
-- host encode: ``encode_cluster`` / ``_encode_cluster`` snapshot the live
-  nodes and their pods into ``ClusterTensors`` (numpy, copied unchanged);
+- host encode: ``encode_cluster`` patches the journaled store's changed rows
+  through the incremental encoder (``ops/encode_delta.py``) by default, or
+  runs the full ``_encode_cluster`` (numpy, copied unchanged);
 - ``repack_check``: the plain PyTorch version of the screen. The reference's
   vmap over candidates is a candidate batch dimension (chunked), its scan a
   loop over the slot axis;
-- ``dispatch_screen`` / ``consolidatable``: one upload per ``ClusterTensors``
-  object, ONE launch of the hand-written repack kernel
-  (``ops/repack_cuda.py``, ``csrc/repack.cu``) for a CUDA device and one
-  device-to-host copy of the mask; the plain version for the CPU. There is
-  no fallback from one to the other;
-- ``repack_set_feasible``: the host validator (numpy, copied; its boolean
-  verdict only, which is what the delete decision reads), the enforcement
-  point behind the over-approximate screen.
+- ``dispatch_screen`` / ``consolidatable``: the screen's inputs from the
+  device-resident mirror (``ops/device_state.py``: uploaded once per encoder
+  chain, patched row by row), or uploaded per ``ClusterTensors`` object for
+  one without an encoder chain or with the mirror switched off; ONE launch
+  of the hand-written repack kernel (``ops/repack_cuda.py``,
+  ``csrc/repack.cu``) for a CUDA device and one device-to-host copy of the
+  mask; the plain version for the CPU. There is no fallback from one to the
+  other;
+- ``repack_set_feasible``: the host validator (numpy, copied), the
+  enforcement point behind the over-approximate screen, with the
+  reference's ``free=``, ``return_free=`` and ``allow_overflow=`` for the
+  replace paths;
+- ``cheaper_replacement`` (one cheaper node for one node's pods) and
+  ``replacement_for_groups`` (one new node absorbing a set's overflow):
+  numpy, copied.
 
-Not carried by this package yet, and refused when asked for: the
-incremental encoder (``encode_cluster(..., incremental=True)``) and
-partitioned tensors (``_partitions``).
+Not carried by this package yet, and refused when asked for: partitioned
+tensors (``_partitions``).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -100,18 +109,30 @@ class ClusterTensors:
 
 def encode_cluster(cluster, catalog, gmax: int = GMAX_DEFAULT,
                    pods_by_node=None, incremental: Optional[bool] = None,
+                   rev_floor: Optional[int] = None,
                    ) -> Optional[ClusterTensors]:
-    """Snapshot ready nodes with claims into consolidation tensors: the
-    reference's full encode (``_encode_cluster``).
+    """Snapshot ready nodes with claims into consolidation tensors.
 
-    ``incremental=True`` asks for the reference's journal-patching encoder,
-    which this package does not carry: it raises ``NotImplementedError``.
-    ``None`` (the default) takes the full encode, as the reference does for
-    a cluster without a change journal. ``pods_by_node`` lets a caller share
-    an already-built per-pass pod view."""
+    Incremental by default when the cluster exposes the change journal
+    (``state.Cluster``): a persistent per-(cluster, catalog) encoder patches
+    dirty node rows from the journal instead of re-tensorizing every node
+    per pass, falling back to the full encode on journal overflow, catalog
+    change, or heavy churn (``ops/encode_delta.py``).
+    ``KARPENTER_TPU_INCREMENTAL_ENCODE=0`` or ``incremental=False`` takes
+    the full encode. ``pods_by_node`` lets a caller share an already-built
+    per-pass pod view, taken at revision ``rev_floor``."""
+    import os
+
+    if incremental is None:
+        incremental = (
+            os.environ.get("KARPENTER_TPU_INCREMENTAL_ENCODE", "1") == "1"
+            and getattr(cluster, "changes_since", None) is not None
+        )
     if incremental:
-        raise NotImplementedError(
-            "the incremental cluster encoder is not ported; use incremental=False"
+        from .encode_delta import incremental_encode_cluster
+
+        return incremental_encode_cluster(
+            cluster, catalog, gmax, pods_by_node=pods_by_node, rev_floor=rev_floor,
         )
     return _encode_cluster(cluster, catalog, gmax, pods_by_node=pods_by_node)
 
@@ -508,8 +529,28 @@ def live_slot_width(group_counts: np.ndarray) -> int:
     return min(w, group_counts.shape[1] if group_counts.ndim == 2 else w)
 
 
-#: provenance of the last screen: backend, device name, ms per stage
+#: provenance of the last screen: backend, device name, residency of its
+#: inputs, ms per stage
 LAST_SCREEN: dict = {}
+
+#: Ratcheted screen-shape buckets: each axis's bucket may only grow beyond
+#: the current need (bounded at 4x it), so a cluster that shrank across a
+#: ladder boundary keeps the mirror's larger, inert-padded shapes, and one
+#: giant cluster cannot tax every later tiny one forever.
+_SCREEN_BUCKET_HW: dict[str, int] = {}
+
+
+def _screen_bucket_hw(kind: str, value: int) -> int:
+    cur = _SCREEN_BUCKET_HW.get(kind, 0)
+    if value > cur:
+        _SCREEN_BUCKET_HW[kind] = value
+        return value
+    return min(cur, value * 4)
+
+
+def reset_screen_buckets() -> None:
+    """Tests: forget the ratcheted screen-shape buckets."""
+    _SCREEN_BUCKET_HW.clear()
 
 
 class _PendingScreen:
@@ -538,7 +579,12 @@ def dispatch_screen(ct: ClusterTensors, chunk: int = 512, device=None) -> _Pendi
     t0 = time.perf_counter()
     memo = ct.__dict__.get("_screen_mask_memo")
     if memo is not None and memo[1] == backend:
+        from . import device_state
+
         out = memo[0].copy()
+        # the mirror is still current for this ct: the pass was answered
+        # with the state resident and no bytes moved
+        device_state.note_hit(ct, dev)
         LAST_SCREEN.clear()
         LAST_SCREEN.update(backend=backend, device=_device_name(dev), memo_hit=True,
                            wall_ms=(time.perf_counter() - t0) * 1e3)
@@ -598,19 +644,29 @@ def _device_inputs(ct: ClusterTensors, dev: torch.device) -> dict:
 
 
 def _screen(ct: ClusterTensors, chunk: int, dev: torch.device):
-    """The screen body: returns (waiter, stage ms). The inputs' device picks
-    the kernel or the plain version inside ``repack_cuda.repack_check``;
-    there is no fallback between them."""
-    from . import repack_cuda
+    """The screen body: returns (waiter, stage ms and residency). The inputs
+    come from the device-resident mirror (hit, patch or upload), or, for a
+    ``ct`` without an encoder chain or with the mirror switched off, from an
+    upload of this ``ct``'s arrays. The mirror's buffers are padded: rows
+    past the live ``N`` have zero free and zero cap, groups past ``G`` zero
+    requests, slots past the live width count 0; the candidates are the
+    live rows only, so the mask is the unpadded screen's answer. The
+    inputs' device picks the kernel or the plain version inside
+    ``repack_cuda.repack_check``; there is no fallback between them."""
+    from . import device_state, repack_cuda
 
     t0 = time.perf_counter()
-    x = _device_inputs(ct, dev)
-    stages = {"upload_ms": (time.perf_counter() - t0) * 1e3}
+    resident, residency = device_state.acquire_screen_tensors(ct, dev)
+    if resident is not None:
+        free, requests, gids, gcounts, cap, cand, _n_live = resident
+    else:
+        x = _device_inputs(ct, dev)
+        free, requests, gids, gcounts, cap, cand = (
+            x[k] for k in ("free", "requests", "group_ids", "group_counts", "cap",
+                           "candidates"))
+    stages = {"residency": residency, "upload_ms": (time.perf_counter() - t0) * 1e3}
     t1 = time.perf_counter()
-    ok = repack_cuda.repack_check(
-        x["free"], x["requests"], x["group_ids"], x["group_counts"],
-        x["cap"], x["candidates"], chunk=chunk,
-    )
+    ok = repack_cuda.repack_check(free, requests, gids, gcounts, cap, cand, chunk=chunk)
     stages["launch_ms"] = (time.perf_counter() - t1) * 1e3
     blocked = ct.blocked
 
@@ -620,6 +676,12 @@ def _screen(ct: ClusterTensors, chunk: int, dev: torch.device):
         return ok.cpu().numpy() & ~blocked
 
     return waiter, stages
+
+
+def repack_feasible_numpy(ct: ClusterTensors, free: np.ndarray, i: int) -> Optional[np.ndarray]:
+    """Host-side re-validation of a single candidate against a *current* free
+    matrix. Returns the updated free matrix on success, None on failure."""
+    return repack_set_feasible(ct, [i], free=free, return_free=True)
 
 
 def _zone_budgets(
@@ -656,7 +718,13 @@ def _zone_budgets(
     return np.full(Z, np.int64(_UNCAPPED))
 
 
-def repack_set_feasible(ct: ClusterTensors, candidate_ids) -> bool:
+def repack_set_feasible(
+    ct: ClusterTensors,
+    candidate_ids,
+    free: Optional[np.ndarray] = None,
+    return_free: bool = False,
+    allow_overflow: bool = False,
+):
     """Can ALL candidates' pods repack onto the *surviving* nodes (every
     non-candidate)? This is the reference's multi-node consolidation
     simulation (designs/consolidation.md:9-15): the whole set is removed at
@@ -667,20 +735,30 @@ def repack_set_feasible(ct: ClusterTensors, candidate_ids) -> bool:
     anti-affinity / DoNotSchedule spread / zone affinity place within sound
     per-zone budgets computed from live counts after the candidate set's
     removal. This is the enforcement point behind the (possibly
-    over-approximate) device screen. Any leftover fails the check.
+    over-approximate) device screen.
 
-    Verdicts are memoized per (ct object, candidate tuple): the answer is a
-    pure function of the tensors, and a binary search over cost-ordered
-    prefixes re-validates the same prefixes against the same unchanged ct.
-    (The reference's ``free=``, ``return_free=`` and ``allow_overflow=``
-    options serve its replace paths, which this package does not carry.)
+    ``allow_overflow=True`` returns ``(free, overflow)`` where overflow maps
+    group id -> pods that found no survivor — the N->1 replacement path
+    absorbs them on one new node. Without it, any leftover fails the check.
+
+    ``free`` starts the simulation from a caller's current free matrix
+    instead of ``ct.free``; ``return_free=True`` returns the free matrix
+    after the placement (None when the set does not repack).
+
+    Boolean verdicts are memoized per (ct emission, candidate tuple): the
+    answer is a pure function of the tensors, and the binary search over
+    cost-ordered prefixes re-validates the same prefixes against the same
+    unchanged ct.
     """
-    _memo = ct.__dict__.setdefault("_repack_memo", {})
-    _mkey = tuple(candidate_ids)
-    hit = _memo.get(_mkey)
-    if hit is not None:
-        return hit
-    free = ct.free.copy()
+    _bool_mode = free is None and not return_free and not allow_overflow
+    _memo = _mkey = None
+    if _bool_mode:
+        _memo = ct.__dict__.setdefault("_repack_memo", {})
+        _mkey = tuple(candidate_ids)
+        hit = _memo.get(_mkey)
+        if hit is not None:
+            return hit
+    free = (ct.free if free is None else free).copy()
     N = free.shape[0]
     G = ct.requests.shape[0]
     Z = max(len(ct.zones), 1)
@@ -704,6 +782,7 @@ def repack_set_feasible(ct: ClusterTensors, candidate_ids) -> bool:
             for cons in (ct.zone_constraints or [[] for _ in range(G)])
         ]
 
+    overflow: dict[int, int] = {}
     _elig_zone_cache: dict[int, np.ndarray] = {}
 
     def _place_group(g: int, cnt: int) -> int:
@@ -820,10 +899,21 @@ def repack_set_feasible(ct: ClusterTensors, candidate_ids) -> bool:
                 del pending[g]
             else:
                 pending[g] = leftover
-    if len(_memo) > 256:
-        _memo.clear()
-    _memo[_mkey] = not pending
-    return not pending
+    for g, leftover in pending.items():
+        if not allow_overflow:
+            if _bool_mode:
+                if len(_memo) > 256:
+                    _memo.clear()
+                _memo[_mkey] = False
+            return None if return_free else False
+        overflow[g] = overflow.get(g, 0) + leftover
+    if allow_overflow:
+        return free, overflow
+    if _bool_mode:
+        if len(_memo) > 256:
+            _memo.clear()
+        _memo[_mkey] = True
+    return free if return_free else True
 
 
 def delete_prefix(ct: ClusterTensors, mask: np.ndarray) -> list[int]:
@@ -841,3 +931,487 @@ def delete_prefix(ct: ClusterTensors, mask: np.ndarray) -> list[int]:
         else:
             hi = mid - 1
     return candidates[:lo]
+
+
+def replacement_for_groups(
+    ct: ClusterTensors,
+    overflow: dict,
+    catalog,
+    pool_name: str,
+    nodepools: Optional[dict] = None,
+    margin: float = 0.15,
+    price_cap: float = float("inf"),
+    set_has_spot: bool = False,
+    spot_to_spot: bool = False,
+    nodeclass_by_pool: Optional[dict] = None,
+) -> Optional[tuple]:
+    """Cheapest single node absorbing ``overflow`` (group id -> pod count):
+    the one-new-node tail of multi-node consolidation replace
+    (designs/consolidation.md:63-65; deprovisioning_test.go:391-395).
+
+    Returns (type_name, price, offering_options) or None. Conservative
+    rules: overflow groups with zone constraints are rejected (the new
+    node's zone can't be proven safe without occupancy simulation);
+    hostname caps are enforced against the combined overflow (everything
+    lands on ONE node); reserved offerings are not drawn (the single-node
+    replace path owns reservation bookkeeping).
+    """
+    from ..models import labels as lbl
+    from ..models.requirements import Requirements
+    from .encode import _SKIP_KEYS, _contains_vec, _label_arrays
+
+    if not overflow:
+        return None
+    gids = sorted(overflow)
+    for g in gids:
+        if ct.zone_constraints and ct.zone_constraints[g]:
+            return None
+    # hostname caps: all overflow pods co-locate on the new node
+    if ct.mpn is not None and ct.hn_match is not None:
+        for g in gids:
+            if ct.mpn[g] >= _UNCAPPED:
+                continue
+            matching = sum(
+                cnt for h, cnt in overflow.items() if ct.hn_match[g, h]
+            )
+            if matching > int(ct.mpn[g]):
+                return None
+
+    tensors = catalog.tensors()
+    types = catalog.list()
+    T = len(types)
+    Z = len(tensors.zones)
+    catalog_seq = tensors.key[0] if tensors.key else 0
+    label_arrays = _label_arrays(types, (catalog.uid, catalog_seq, tensors.names))
+
+    def static_mask(reqs: Requirements) -> np.ndarray:
+        row = np.ones(T, dtype=bool)
+        for key, vs in reqs:
+            if key in _SKIP_KEYS:
+                continue
+            arrays = label_arrays.get(key)
+            if arrays is None:
+                if not vs.allow_undefined:
+                    row[:] = False
+                    break
+                continue
+            row &= _contains_vec(vs, *arrays)
+        return row
+
+    pool = (nodepools or {}).get(pool_name)
+    node_compat = np.ones(T, dtype=bool)
+    window = np.ones((Z, lbl.NUM_CAPACITY_TYPES), dtype=bool)
+    if pool is not None:
+        preqs = Requirements(pool.requirements)
+        node_compat &= static_mask(preqs)
+        zvs = preqs.get(lbl.TOPOLOGY_ZONE)
+        cvs = preqs.get(lbl.CAPACITY_TYPE)
+        window &= np.array([zvs.contains(z) for z in tensors.zones])[:, None]
+        window &= np.array([cvs.contains(c) for c in lbl.CAPACITY_TYPES])[None, :]
+    total = np.zeros(ct.requests.shape[1], dtype=np.float32)
+    for g in gids:
+        rep = ct.group_pods[g][0]
+        reqs = rep.requirements()
+        node_compat &= static_mask(reqs)
+        zvs = reqs.get(lbl.TOPOLOGY_ZONE)
+        cvs = reqs.get(lbl.CAPACITY_TYPE)
+        window &= np.array([zvs.contains(z) for z in tensors.zones])[:, None]
+        window &= np.array([cvs.contains(c) for c in lbl.CAPACITY_TYPES])[None, :]
+        total += ct.requests[g] * overflow[g]
+    if not window.any():
+        return None
+
+    allowed = tensors.available & window[None, :, :]
+    allowed[:, :, lbl.RESERVED_INDEX] = False  # see docstring
+    from .encode import effective_capacity
+
+    cap = effective_capacity(
+        tensors.capacity, types, (nodeclass_by_pool or {}).get(pool_name)
+    )
+    fits = (total[None, :] <= cap + 1e-4).all(axis=1)
+
+    def _usable(a):
+        wp = np.where(a, tensors.price, np.inf).min(axis=(1, 2))
+        u = node_compat & fits & np.isfinite(wp)
+        u &= wp < price_cap * (1.0 - margin) - 1e-9
+        return u, wp
+
+    if set_has_spot and allowed[:, :, lbl.SPOT_INDEX].any():
+        # same SpotToSpotConsolidation gate as the single-node path: a set
+        # containing spot nodes only lands on a spot replacement when the
+        # gate is on AND >= MIN_TYPES_FOR_SPOT_TO_SPOT cheaper spot-capable
+        # types exist
+        spot_only = np.zeros_like(allowed)
+        spot_only[:, :, lbl.SPOT_INDEX] = allowed[:, :, lbl.SPOT_INDEX]
+        u_spot, _ = _usable(spot_only)
+        if not spot_to_spot or int(u_spot.sum()) < MIN_TYPES_FOR_SPOT_TO_SPOT:
+            allowed = allowed.copy()
+            allowed[:, :, lbl.SPOT_INDEX] = False
+    usable, win_price = _usable(allowed)
+    if not usable.any():
+        return None
+    t = int(np.where(usable, win_price, np.inf).argmin())
+    offering_options = [
+        (tensors.zones[zi], lbl.CAPACITY_TYPES[ci])
+        for zi in range(Z)
+        for ci in range(lbl.NUM_CAPACITY_TYPES)
+        if allowed[t, zi, ci]
+    ]
+    return tensors.names[t], float(win_price[t]), offering_options
+
+
+# Core parity: MinInstanceTypesForSpotToSpotConsolidation — a spot node may
+# only be replaced by another spot offering when at least this many cheaper
+# instance types exist, otherwise consolidation walks the fleet toward the
+# top of the spot market and gets interrupted right back.
+MIN_TYPES_FOR_SPOT_TO_SPOT = 15
+
+
+#: process-level class cache for cheaper_replacement, keyed inside on one
+#: (catalog snapshot, pool set, nodeclass set) signature — see the cache
+#: comment in the function body. Values are pure functions of their keys,
+#: so sharing across environments/runs is sound (and determinism-neutral).
+#: Publication is build-then-swap under the lock: a caller whose mkey
+#: differs builds a FRESH state object and swaps it in, so a concurrent
+#: pass in another environment keeps its own consistent reference instead
+#: of reading a cleared-and-half-repopulated dict. Same-key dict fills
+#: race benignly (idempotent values, GIL-atomic ops).
+_REPLACE_CLASS_CACHE: dict = {}
+_REPLACE_CLASS_LOCK = threading.Lock()
+_REPLACE_DEC_CAP = 262144
+
+
+def cheaper_replacement(
+    ct: ClusterTensors, catalog, nodepools: Optional[dict] = None, margin: float = 0.15,
+    reserved_allow: Optional[dict] = None, spot_to_spot: bool = False,
+    nodeclass_by_pool: Optional[dict] = None,
+    candidates: Optional[list] = None,
+) -> list:
+    """[(node_index, type_name, new_price)] single-node replace candidates:
+    all the node's pods fit one cheaper instance type (consolidation.md
+    'replace with a single cheaper node'). The replacement must satisfy the
+    node's NodePool requirements, not just the pods'.
+
+    ``margin`` demands a meaningful saving (default 15%) — with zero margin,
+    zonal spot-price jitter makes replace oscillate forever: every pass finds
+    an epsilon-cheaper offering for the node it just created.
+
+    ``spot_to_spot`` is the core SpotToSpotConsolidation feature gate
+    (default off, like upstream): a running SPOT node is never replaced by
+    another spot offering unless the gate is on AND at least
+    ``MIN_TYPES_FOR_SPOT_TO_SPOT`` cheaper spot-capable types qualify —
+    spot->on-demand/reserved replacements are always considered.
+
+    ``candidates`` bounds the per-node loop to the given tensor rows (the
+    disruption controller passes its validated eligibility set — on a big
+    fleet with no eligible node the all-rows walk was pure waste); None
+    keeps the legacy every-row sweep."""
+    from ..models.requirements import Requirements
+    from .encode import _SKIP_KEYS, _contains_vec, _label_arrays
+
+    tensors = catalog.tensors()
+    types = catalog.list()
+    T = len(types)
+    catalog_seq = tensors.key[0] if tensors.key else 0
+    label_arrays = _label_arrays(types, (catalog.uid, catalog_seq, tensors.names))
+    min_price = tensors.min_price()  # [T]
+    from .encode import effective_capacity
+
+    _cap_memo: dict = {}
+
+    def _cap_for(pool_name):
+        # per-pool effective capacity (nodeclass ephemeral rules); one
+        # adjusted copy per pool, not per node
+        if pool_name not in _cap_memo:
+            _cap_memo[pool_name] = effective_capacity(
+                tensors.capacity, types, (nodeclass_by_pool or {}).get(pool_name)
+            )
+        return _cap_memo[pool_name]
+
+    def static_mask(reqs: Requirements) -> np.ndarray:
+        row = np.ones(T, dtype=bool)
+        for key, vs in reqs:
+            if key in _SKIP_KEYS:
+                continue
+            arrays = label_arrays.get(key)
+            if arrays is None:
+                if not vs.allow_undefined:
+                    row[:] = False
+                    break
+                continue
+            row &= _contains_vec(vs, *arrays)
+        return row
+
+    from ..models import labels as lbl
+
+    Z = len(tensors.zones)
+    # Per-ct memo for everything derivable from (catalog snapshot, pools):
+    # the incremental encoder returns the SAME ct object across unchanged
+    # passes, so the [G, T] compat matrix, pool masks/windows, and group
+    # windows are computed once per (snapshot, pool set) instead of per
+    # pass.
+    memo = ct.__dict__.setdefault("_replace_memo", {})
+    pools_sig = tuple(sorted(
+        (name, pool.hash()) for name, pool in (nodepools or {}).items()
+    ))
+    nc_sig = tuple(sorted(
+        (name, nc.hash() if nc is not None else None)
+        for name, nc in (nodeclass_by_pool or {}).items()
+    ))
+    mkey = (catalog.uid, tensors.key, pools_sig, nc_sig)
+    # Token-keyed class cache, shared across emissions AND encoders: a
+    # churn pass emits a NEW ClusterTensors, but a group's [T] compat row, its
+    # (zone, captype) window, and the per-node-CLASS replacement decision
+    # are pure functions of the group's interned ``group_token`` under one
+    # (catalog snapshot, pool set) — the same identity the encoders use
+    # for group equality. Keying on tokens instead of per-ct group indices
+    # means 1%-churn passes re-score only genuinely NEW classes instead of
+    # rebuilding the matrix and re-scoring every candidate per emission.
+    with _REPLACE_CLASS_LOCK:
+        cache = _REPLACE_CLASS_CACHE.get("state")
+    if cache is None or cache.get("key") != mkey:
+        cache = {"key": mkey, "rows": {}, "gw": {}, "dec": {}}
+        # spec requirements only — template *labels* are stamped onto
+        # nodes, not constraints the instance type must itself satisfy
+        pool_masks: dict[str, np.ndarray] = {}
+        pool_windows: dict[str, np.ndarray] = {}  # [Z, C] allowance
+        for name, pool in (nodepools or {}).items():
+            reqs = Requirements(pool.requirements)
+            pool_masks[name] = static_mask(reqs)
+            zvs = reqs.get(lbl.TOPOLOGY_ZONE)
+            cvs = reqs.get(lbl.CAPACITY_TYPE)
+            zrow = np.array([zvs.contains(z) for z in tensors.zones])
+            crow = np.array([cvs.contains(ct_) for ct_ in lbl.CAPACITY_TYPES])
+            pool_windows[name] = zrow[:, None] & crow[None, :]
+        cache["pool_masks"] = pool_masks
+        cache["pool_windows"] = pool_windows
+        with _REPLACE_CLASS_LOCK:
+            # fully built before publication; a concurrent different-key
+            # pass that swapped first just wins (we keep OUR reference)
+            _REPLACE_CLASS_CACHE["state"] = cache
+    pool_masks = cache["pool_masks"]
+    pool_windows = cache["pool_windows"]
+    if memo.get("key") != mkey:
+        memo.clear()
+        memo["key"] = mkey
+        # group identity: interned consolidation tokens (models/pod.py)
+        tokens = [
+            pods[0].group_token() if pods else None
+            for pods in ct.group_pods
+        ]
+        # group x type compat via the same vectorized path as encode,
+        # computed only for tokens the class cache hasn't seen
+        G = ct.requests.shape[0]
+        compat_t = np.ones((G, T), dtype=bool)
+        rows = cache["rows"]
+        for gi, pods in enumerate(ct.group_pods):
+            row = rows.get(tokens[gi])
+            if row is None:
+                reqs = pods[0].requirements()
+                row = np.ones(T, dtype=bool)
+                for key, vs in reqs:
+                    if key in (lbl.TOPOLOGY_ZONE, lbl.CAPACITY_TYPE,
+                               lbl.HOSTNAME, lbl.NODEPOOL):
+                        continue
+                    arrays = label_arrays.get(key)
+                    if arrays is None:
+                        if not vs.allow_undefined:
+                            row[:] = False
+                            break
+                        continue
+                    row &= _contains_vec(vs, *arrays)
+                rows[tokens[gi]] = row
+            compat_t[gi] = row
+        memo["tokens"] = tokens
+        memo["compat_t"] = compat_t
+    tokens = memo["tokens"]
+    compat_t = memo["compat_t"]
+
+    def group_window(gi: int) -> np.ndarray:
+        reqs = ct.group_pods[gi][0].requirements()
+        zvs = reqs.get(lbl.TOPOLOGY_ZONE)
+        cvs = reqs.get(lbl.CAPACITY_TYPE)
+        zrow = np.array([zvs.contains(z) for z in tensors.zones])
+        crow = np.array([cvs.contains(ct_) for ct_ in lbl.CAPACITY_TYPES])
+        return zrow[:, None] & crow[None, :]
+
+    out = []
+    N = len(ct.node_names)
+    present = ct.group_counts > 0  # [N, GMAX]
+    gw_cache: dict = cache["gw"]  # token -> [Z, C] window
+    # Hard reserved counts, tracked across candidates within this pass: a
+    # single free reservation slot may justify at most ONE replacement —
+    # later candidates must price against market capacity or stay put.
+    res_left = np.zeros((T, Z), dtype=np.int64)
+    type_idx = {n: i for i, n in enumerate(tensors.names)}
+    zone_idx = {z: i for i, z in enumerate(tensors.zones)}
+    # Window-aware slot accounting: a capacity block outside its
+    # [start_s, end_s) purchase window contributes no slots, so a
+    # replacement can never be justified by a reservation that will have
+    # expired by the time the new node launches (market/offerings.py).
+    _clk = getattr(catalog, "_clock", None)
+    _now = _clk.now() if _clk is not None else None
+    for r in catalog.reservations.list():
+        if _now is not None and hasattr(r, "open_at") and not r.open_at(_now):
+            continue
+        ti, zi = type_idx.get(r.instance_type), zone_idx.get(r.zone)
+        if ti is not None and zi is not None:
+            res_left[ti, zi] += r.remaining
+    # Reservation isolation, per (type, zone): a replacement may only land
+    # on the reserved pairs its own pool's nodeclass resolved. reserved_allow
+    # maps pool -> set of (instance_type, zone); None = no gating (legacy
+    # single-tenant callers); unknown pools get nothing.
+    pool_rmask: dict[str, np.ndarray] = {}
+    if reserved_allow is not None:
+        for pname, pairs in reserved_allow.items():
+            m = np.zeros((T, Z), dtype=bool)
+            if pairs is True:
+                m[:] = True
+            elif pairs:
+                for tname, zname in pairs:
+                    ti, zi = type_idx.get(tname), zone_idx.get(zname)
+                    if ti is not None and zi is not None:
+                        m[ti, zi] = True
+            pool_rmask[pname] = m
+        no_access = np.zeros((T, Z), dtype=bool)
+    fallback = np.ones((Z, lbl.NUM_CAPACITY_TYPES), dtype=bool)
+    # Per-node-CLASS decision cache: thousands of nodes collapse to the
+    # distinct (pool, group set, zone, captype, price, fill) combinations
+    # actually present, within a pass and — because the memo lives on the
+    # (token-keyed) class cache — across passes, emissions, and encoder
+    # rebuilds. Disabled whenever hard reservation slots are in play:
+    # those decisions mutate res_left and may not be replayed.
+    dec: dict = cache["dec"]
+    if len(dec) > _REPLACE_DEC_CAP:  # unbounded fills are a leak, not a cache
+        dec.clear()
+    _MISS = object()
+    cacheable = not bool(res_left.any())
+    # Whole-result memo: on an unchanged ct (same emission object across
+    # warm passes) with the same pool set / margins and NO hard reservation
+    # slots in play, the entire candidate list is deterministic — the
+    # per-node loop below is pure repeat work on every quiet reconcile.
+    ra_sig = (
+        None if reserved_allow is None
+        else tuple(sorted(
+            (p, True if v is True else tuple(sorted(v)) if v else ())
+            for p, v in reserved_allow.items()
+        ))
+    )
+    rows_iter = (
+        range(N) if candidates is None
+        else [int(i) for i in candidates]
+    )
+    out_key = (
+        margin, spot_to_spot, ra_sig,
+        None if candidates is None else tuple(rows_iter),
+    )
+    if cacheable:
+        hit = memo.get("out")
+        if hit is not None and hit[0] == out_key:
+            return list(hit[1])
+    for i in rows_iter:
+        if ct.blocked[i] or not present[i].any():
+            continue
+        gids = ct.group_ids[i][present[i]]
+        dkey = None
+        if cacheable:
+            dkey = (
+                ct.nodepool_names[i],
+                tuple(sorted({tokens[int(g)] for g in gids})),
+                ct.node_zone[i] if ct.node_zone else None,
+                ct.node_captype[i] if ct.node_captype else None,
+                float(ct.price[i]),
+                ct.used_total[i].tobytes(),
+                margin, spot_to_spot,
+            )
+            hit = dec.get(dkey, _MISS)
+            if hit is not _MISS:
+                if hit is not None:
+                    out.append((i,) + hit)
+                continue
+        node_compat = compat_t[gids].all(axis=0)  # [T]
+        pool_mask = pool_masks.get(ct.nodepool_names[i])
+        if pool_mask is not None:
+            node_compat = node_compat & pool_mask
+        # joint (zone, captype) window: pool allowance x every group on the
+        # node — the replacement must be launchable where its pods may run
+        window = pool_windows.get(ct.nodepool_names[i], fallback).copy()
+        zone_pinned = False
+        for g in gids:
+            g = int(g)
+            tok = tokens[g]
+            if tok not in gw_cache:
+                gw_cache[tok] = group_window(g)
+            window &= gw_cache[tok]
+            if ct.zone_constraints and ct.zone_constraints[g]:
+                zone_pinned = True
+        if zone_pinned:
+            # zone-topology pods move as one unit: pinning the replacement
+            # to the node's current zone keeps every zone count unchanged,
+            # so spread/anti/affinity stay satisfied by construction
+            zrow = np.array([z == ct.node_zone[i] for z in tensors.zones])
+            window &= zrow[:, None]
+        if not window.any():
+            if dkey is not None:
+                dec[dkey] = None
+            continue
+        # price per type restricted to the allowed, live offerings;
+        # reserved only where slots remain unclaimed this pass AND the
+        # node's pool holds the reservation
+        allowed = tensors.available & window[None, :, :]
+        allowed[:, :, lbl.RESERVED_INDEX] &= res_left > 0
+        if reserved_allow is not None:
+            allowed[:, :, lbl.RESERVED_INDEX] &= pool_rmask.get(
+                ct.nodepool_names[i], no_access
+            )
+        cap_i = _cap_for(ct.nodepool_names[i])
+        fits = (ct.used_total[i][None, :] <= cap_i + 1e-4).all(axis=1)
+
+        def _score(a):
+            wp = np.where(a, tensors.price, np.inf).min(axis=(1, 2))
+            u = (
+                node_compat & fits & np.isfinite(wp)
+                & (wp < ct.price[i] * (1.0 - margin) - 1e-9)
+            )
+            return u, wp
+
+        usable, win_price = _score(allowed)
+        if (
+            ct.node_captype
+            and ct.node_captype[i] == lbl.CAPACITY_TYPE_SPOT
+            and allowed[:, :, lbl.SPOT_INDEX].any()
+        ):
+            # SpotToSpotConsolidation gate: spot->spot needs the gate on AND
+            # enough cheaper SPOT-CAPABLE types (cheapness via on-demand
+            # offerings doesn't diversify the spot pool) to stay off the
+            # top of the spot market
+            spot_only = np.zeros_like(allowed)
+            spot_only[:, :, lbl.SPOT_INDEX] = allowed[:, :, lbl.SPOT_INDEX]
+            u_spot, _ = _score(spot_only)
+            if not spot_to_spot or int(u_spot.sum()) < MIN_TYPES_FOR_SPOT_TO_SPOT:
+                non_spot = allowed.copy()
+                non_spot[:, :, lbl.SPOT_INDEX] = False
+                allowed = non_spot
+                usable, win_price = _score(allowed)
+        if usable.any():
+            t = int(np.where(usable, win_price, np.inf).argmin())
+            zi_win, ci_win = np.unravel_index(
+                np.argmin(np.where(allowed[t], tensors.price[t], np.inf)), (Z, lbl.NUM_CAPACITY_TYPES)
+            )
+            if ci_win == lbl.RESERVED_INDEX:
+                res_left[t, zi_win] -= 1  # this candidate claims the slot
+            offering_options = [
+                (tensors.zones[zi], lbl.CAPACITY_TYPES[ci])
+                for zi in range(Z)
+                for ci in range(lbl.NUM_CAPACITY_TYPES)
+                if allowed[t, zi, ci]
+            ]
+            result = (tensors.names[t], float(win_price[t]), offering_options)
+            if dkey is not None:  # cacheable => reserved can't have won
+                dec[dkey] = result
+            out.append((i,) + result)
+        elif dkey is not None:
+            dec[dkey] = None
+    if cacheable:
+        memo["out"] = (out_key, list(out))
+    return out

@@ -5,8 +5,9 @@ Each case is a tuple of host arrays in ``repack_check``'s argument order:
 family is the JAX package's ``tests/test_repack_pallas.py::_random_problem``
 (copied: this package imports nothing of the JAX package), beside the edge
 cases that file checks, cases aimed at the kernel's table design
-(``path_cases``), two wide ones (``large_cases``) and a dense cluster of
-large nodes (``dense_cases``).
+(``path_cases``), two wide ones (``large_cases``), a dense cluster of
+large nodes (``dense_cases``) and an encoded cluster padded as the
+device-resident mirror holds it (``mirror_cases``).
 ``tests/test_torch_consolidate.py``, ``tests/test_torch_repack_table.py``,
 ``tests/test_torch_repack_cuda.py`` and ``chip_smoke.py`` share them.
 """
@@ -202,3 +203,20 @@ def dense_cases(n_nodes: int = 5000, seed: int = 10) -> dict:
     free = (alloc - used).astype(np.float32)
     cap = np.where(rng.rand(G, N) < 0.1, 0, 60000).astype(np.uint16)
     return {f"dense_{N}": (free, requests, gids, gcounts, cap, np.arange(N, dtype=np.int32))}
+
+
+def mirror_cases(ct) -> dict:
+    """name -> case: ``mirror_padded``, the encoded cluster ``ct``'s screen
+    inputs padded exactly as ``ops/device_state.py``'s upload pads them
+    (its buckets without the process-wide ratchet): rows past the live N
+    with zero free and zero cap, groups past G with zero requests, slots
+    past the live width counting 0, the float32 cap; the candidates are the
+    live N only."""
+    from .consolidate import live_slot_width
+    from .device_state import padded_screen_arrays, screen_buckets
+
+    NB, GB, S = screen_buckets(len(ct.node_names), ct.requests.shape[0],
+                               live_slot_width(ct.group_counts))
+    a = padded_screen_arrays(ct, NB, GB, S)
+    return {"mirror_padded": tuple(a[k] for k in (
+        "free", "requests", "group_ids", "group_counts", "cap", "candidates"))}

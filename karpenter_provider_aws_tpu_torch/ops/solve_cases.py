@@ -4,7 +4,7 @@ Each builder takes ``pkg``, any object with the ``lbl`` (labels module) and
 ``make_pods`` of a package, so the same pods can be built by the JAX package
 and by this one. ``tests/test_torch_encode.py`` and ``tests/test_torch_solver.py``
 (both packages, on the CPU) and ``chip_smoke.py`` (this package, on the
-card) share them.
+card) share them; ``tests/test_torch_market.py`` too.
 """
 
 from __future__ import annotations
@@ -56,3 +56,21 @@ def config8_pods(pkg, n_deployments: int = 300, seed: int = 3) -> list:
         pods += pkg.make_pods(replicas, f"d{i}", {"cpu": f"{cpu_m}m", "memory": f"{mem}Mi"},
                               **kwargs)
     return pods
+
+
+def config5_pods(pkg, n: int = 4000) -> list:
+    """``benchmarks/solve_configs.py``'s ``config5_accelerators``: a quarter
+    GPU pods, an eighth Neuron pods, the rest cpu pods."""
+    pods = pkg.make_pods(n // 4, "gpu", {"cpu": "4", "memory": "16Gi", "nvidia.com/gpu": 1})
+    pods += pkg.make_pods(n // 8, "neuron",
+                          {"cpu": "8", "memory": "32Gi", "aws.amazon.com/neuron": 1})
+    pods += pkg.make_pods(n - n // 4 - n // 8, "cpu", {"cpu": "1", "memory": "2Gi"})
+    return pods
+
+
+#: config5's two capacity reservations (reserved capacity at price 0):
+#: ``Reservation`` keyword arguments
+CONFIG5_RESERVATIONS = (
+    dict(id="cr-gpu", instance_type="g5.12xlarge", zone="zone-a", count=20),
+    dict(id="cr-trn", instance_type="trn1.32xlarge", zone="zone-b", count=4),
+)

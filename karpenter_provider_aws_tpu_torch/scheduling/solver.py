@@ -10,9 +10,11 @@ host code.
 Multi-nodepool handling mirrors the core scheduler: nodepools are tried in
 weight order; pods a nodepool cannot place fall through to the next.
 
+Market state (reservation windows, a market model's reclaim premium) rides
+the catalog's price and availability tensors, as in the reference.
+
 Not carried yet, and refused when asked for (``NotImplementedError``): gang
-scheduling, the optimizer lane, the market model, partition lanes and
-why-attribution. There is no degraded mode: a CUDA solve either runs the
+scheduling, the optimizer lane, partition lanes and why-attribution. There is no degraded mode: a CUDA solve either runs the
 kernel or raises.
 """
 

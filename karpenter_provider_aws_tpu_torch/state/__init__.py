@@ -1,4 +1,5 @@
-"""Cluster state the consolidation screen reads (the JAX package's ``state/``,
-as far as this slice needs it)."""
+"""Cluster state: the journaled store the consolidation pass reads (the JAX
+package's ``state/``, without its partition router, pending-pod index, gang
+counts and PDBs)."""
 
 from .cluster import Cluster, Node  # noqa: F401

@@ -15,7 +15,8 @@
    are matched by the sorted names of their pods, not by index.
 3. Tensors handed over with ``interop.cluster_tensors_from_reference``
    give the reference's mask and validator verdicts.
-4. What the slice does not carry raises.
+4. The incremental encode equals the full one; what the slice does not
+   carry raises.
 """
 
 import importlib
@@ -277,7 +278,7 @@ def _reference_prefix(ct, mask):
 
 def _encode_both(name):
     jct = JAXPKG.cons.encode_cluster(*CLUSTERS[name](JAXPKG), incremental=False)
-    tct = TORCHPKG.cons.encode_cluster(*CLUSTERS[name](TORCHPKG))
+    tct = TORCHPKG.cons.encode_cluster(*CLUSTERS[name](TORCHPKG), incremental=False)
     return jct, tct
 
 
@@ -366,13 +367,22 @@ def test_interop_missing_field_raises():
         interop.cluster_tensors_from_reference({"free": np.zeros((1, 1))})
 
 
-# -- 4. what the slice does not carry -----------------------------------------
+# -- 4. the incremental encode; what the slice does not carry -----------------
 
 def test_incremental_encode_raises():
+    """The journaled store's incremental encode (its full build) describes
+    the same cluster as the full encode; the default is incremental."""
+    from karpenter_provider_aws_tpu_torch.ops.encode_delta import (
+        canonical_equal,
+        canonical_form,
+    )
+
     cluster, catalog = config4(TORCHPKG, 3)
-    with pytest.raises(NotImplementedError):
-        tcons.encode_cluster(cluster, catalog, incremental=True)
-    assert tcons.encode_cluster(cluster, catalog, incremental=False) is not None
+    inc = tcons.encode_cluster(cluster, catalog, incremental=True)
+    full = tcons.encode_cluster(cluster, catalog, incremental=False)
+    assert inc is not None and full is not None and inc is not full
+    assert canonical_equal(canonical_form(inc), canonical_form(full)) == []
+    assert tcons.encode_cluster(cluster, catalog) is inc
 
 
 def test_partitioned_tensors_raise(encoded):

@@ -107,20 +107,14 @@ def config1(pkg, n=2000):
 def config5(pkg, n=400):
     """config5_accelerators: GPU and Neuron pods beside cpu pods, two pools;
     ``config5_reservations`` pre-pays part of the accelerator fleet."""
-    pods = pkg.make_pods(n // 4, "gpu", {"cpu": "4", "memory": "16Gi", "nvidia.com/gpu": 1})
-    pods += pkg.make_pods(n // 8, "neuron",
-                          {"cpu": "8", "memory": "32Gi", "aws.amazon.com/neuron": 1})
-    pods += pkg.make_pods(n - n // 4 - n // 8, "cpu", {"cpu": "1", "memory": "2Gi"})
-    return pods, [_pool(pkg), _pool(pkg, name="accel", cats=("g", "p", "inf", "trn"))]
+    return (solve_cases.config5_pods(pkg, n),
+            [_pool(pkg), _pool(pkg, name="accel", cats=("g", "p", "inf", "trn"))])
 
 
 def config5_reservations(pkg, catalog) -> None:
     """config5's two capacity reservations (reserved captype at price 0)."""
     Reservation = importlib.import_module(f"{pkg.root}.catalog.reservations").Reservation
-    catalog.reservations.update([
-        Reservation(id="cr-gpu", instance_type="g5.12xlarge", zone="zone-a", count=20),
-        Reservation(id="cr-trn", instance_type="trn1.32xlarge", zone="zone-b", count=4),
-    ])
+    catalog.reservations.update([Reservation(**r) for r in solve_cases.CONFIG5_RESERVATIONS])
 
 
 def config6(pkg):
@@ -201,22 +195,22 @@ def test_gang_pods_are_refused(monkeypatch):
 
 
 def test_market_state_is_refused(monkeypatch):
+    """A reservation encodes as the reference encodes it, with the market
+    on (the default: an open-ended reservation window) and off (the static
+    reserved column, committed price 0)."""
+    from karpenter_provider_aws_tpu.catalog.reservations import Reservation as JR
     from karpenter_provider_aws_tpu_torch.catalog.reservations import Reservation
 
-    catalog = TORCHPKG.CatalogProvider()
-    catalog.reservations.update([
-        Reservation(id="cr-1", instance_type="m5.large", zone="zone-a", count=2),
-    ])
-    monkeypatch.setenv("KARPENTER_TPU_MARKET", "1")
-    with pytest.raises(NotImplementedError, match="market"):
-        catalog.tensors()
-    # with the market off, the reservation encodes as the reference's
-    # static reserved column (committed price 0)
-    monkeypatch.setenv("KARPENTER_TPU_MARKET", "0")
-    from karpenter_provider_aws_tpu.catalog.reservations import Reservation as JR
-
-    ref = JAXPKG.CatalogProvider()
-    ref.reservations.update([JR(id="cr-1", instance_type="m5.large", zone="zone-a", count=2)])
-    a, b = ref.tensors(), catalog.tensors()
-    assert a.price.tobytes() == b.price.tobytes()
-    assert a.available.tobytes() == b.available.tobytes()
+    for market in ("1", "0"):
+        monkeypatch.setenv("KARPENTER_TPU_MARKET", market)
+        catalog = TORCHPKG.CatalogProvider()
+        catalog.reservations.update([
+            Reservation(id="cr-1", instance_type="m5.large", zone="zone-a", count=2),
+        ])
+        ref = JAXPKG.CatalogProvider()
+        ref.reservations.update([JR(id="cr-1", instance_type="m5.large", zone="zone-a", count=2)])
+        a, b = ref.tensors(), catalog.tensors()
+        assert a.price.tobytes() == b.price.tobytes(), market
+        assert a.available.tobytes() == b.available.tobytes(), market
+        ti = b.names.index("m5.large")
+        assert b.available[ti, 0, TORCHPKG.lbl.RESERVED_INDEX]

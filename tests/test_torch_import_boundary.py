@@ -83,3 +83,10 @@ def test_every_module_imports_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip() == f"ok {len(modules)}"
+
+
+def test_the_consolidation_pass_modules_are_covered():
+    modules = _modules()
+    for name in ("market", "market.offerings", "ops.encode_delta", "ops.device_state",
+                 "state.cluster", "catalog.pricing"):
+        assert f"karpenter_provider_aws_tpu_torch.{name}" in modules, name

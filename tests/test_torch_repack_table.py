@@ -208,6 +208,19 @@ def test_mirror_matches_plain(name):
     np.testing.assert_array_equal(ok, _plain(*args))
 
 
+def test_mirror_matches_plain_on_the_mirror_padded_case():
+    """An encoded cluster's screen inputs padded as the device-resident
+    mirror pads them (zero free and cap rows, zero-request groups, count-0
+    slots, a float32 cap)."""
+    from test_torch_consolidate import TORCHPKG, mixed
+
+    args = repack_cases.mirror_cases(consolidate.encode_cluster(*mixed(TORCHPKG)))[
+        "mirror_padded"]
+    ok, _ = mirror(*args)
+    np.testing.assert_array_equal(ok, _plain(*args))
+    assert ok.any()
+
+
 def test_uint16_wire_gives_the_float_caps_verdicts():
     args = CASES["float_cap"]
     wire = args[:4] + (args[4].astype(np.uint16),) + args[5:]
