@@ -81,6 +81,29 @@ JSON line (any failure exits non-zero):
   11. market — config5 (two reservations, a MarketModel(seed=0), the
                market on) through TorchSolver() on the card: the plan equals
                the CPU solve's, the FFD kernel launched, reserved nodes used;
+  12. optimizer — the optimizer lane, the default solve (phases 3-11 run
+               with KARPENTER_TPU_OPTIMIZER=0, so their checks stay what
+               they were): ``optimizer_solves``, TorchSolver() lane on
+               against TorchSolver(device="cpu") with the same seed on the
+               headline's first solve (1 + 3 launches, 1 + 24 lanes),
+               config8 and frag seeds 0-11 (equal plans and outcomes), and
+               the count of the noise's float32 values that differ between
+               the CPU and the card over all 2^24 inputs;
+               ``optimizer_headline``, the headline's warm solve wall with
+               the lane off and on and the reference's gate (opt p99 <= 12 x
+               ffd p50); ``optimizer_lanes``, the lane launch
+               (``ffd_solve_lanes``, 8 lanes in one launch, round 0 of the
+               lane program) exact against 8 plain solves on the kernel's
+               one-CTA layout (config8, 768 rows), its 8-CTA shared-memory
+               layout (the headline at 4,096 rows and at the rows its
+               lane-on solve gave the lanes) and its global-memory branch
+               (20,480 rows), with the clusters the card holds at once and
+               the 8 lanes' device time beside lane 0's alone;
+               ``optimizer``, the reference's config6_frag_optimizer row on
+               the port (cost over the greedy oracle's, p50 / p95 / max,
+               adopted and rejected; solve wall with the lane off and on, 3
+               warm-ups and 10 timed; the lane's device time from the
+               profiler, its stages and its input bytes);
 then the kernels line, the card's name and power limit, and the result line.
 It needs the repository's package beside it and a CUDA device.
 """
@@ -89,6 +112,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -963,8 +987,6 @@ def market_phase(smi: str, n_pods: int = 4000) -> int:
     reservations) solved through ``TorchSolver()`` on the card with the
     market on and a ``MarketModel(seed=0)``; the plan must equal the CPU
     solve's on the same market. Returns the FFD kernel's launches."""
-    import os
-
     from karpenter_provider_aws_tpu_torch.models import NodePool, Operator, Requirement
     from karpenter_provider_aws_tpu_torch.models import labels as lbl
     from karpenter_provider_aws_tpu_torch.models.pod import make_pods
@@ -1002,10 +1024,250 @@ def market_phase(smi: str, n_pods: int = 4000) -> int:
     return launches
 
 
+#: the reference's ``config6_frag_optimizer`` row: seeds of ``frag_workload``,
+#: warm-ups and timed solves (``benchmarks/optimizer_bench.py:96-124``), and
+#: the lanes of the default lane program
+FRAG_SEEDS, FRAG_WARMUP, FRAG_ITERS, LANES = 12, 3, 10, 8
+HEADLINE_ITERS = 5
+LANE_STAGES = ("encode_ms", "device_ms", "decode_ms", "opt_dispatch_ms", "opt_fetch_ms",
+               "opt_refine_ms")
+
+
+def lane_check(ffd, ffd_cuda, args, N) -> dict:
+    """The lane launch (``ffd_solve_lanes``: LANES solves in one launch)
+    against LANES plain solves on the same CUDA tensors, then its times: the
+    whole call (CUDA events), the kernel's device time (profiler), lane 0
+    alone through ``ffd_solve`` on the same shape, and the bound for all
+    lanes' bytes and operations."""
+    got = ffd_cuda.ffd_solve_lanes(*args, max_nodes=N)
+    torch.cuda.synchronize()
+    err, nbytes, ops, n_open = 0.0, 0, 0, []
+    for lane in range(LANES):
+        one = dict(zip(FFD_FIELDS, (a[lane] for a in args)))
+        want = call(ffd.ffd_solve, one, N)
+        mine = type(got)(*(f[lane] for f in got))
+        err = max(err, compare(f"lane {lane}", mine, want))
+        b, o = kernel_bytes_and_ops(one, N, mine)
+        nbytes, ops, n_open = nbytes + b, ops + o, n_open + [int(mine.n_open)]
+    lanes_dev, lanes_kept = device_ms(lambda: ffd_cuda.ffd_solve_lanes(*args, max_nodes=N),
+                                      ("ffd_kernel",), 20)
+    lane0 = dict(zip(FFD_FIELDS, (a[0] for a in args)))
+    one_dev, one_kept = device_ms(lambda: call(ffd_cuda.ffd_solve, lane0, N), ("ffd_kernel",), 20)
+    (L, G, R), T = args[0].shape, args[3].shape[1]
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    return {
+        "N": N, "G": G, "T": T, "R": R, "lanes": L, "resident": ffd_cuda.resident(N, R),
+        "active_ctas": ffd_cuda.active_ctas(N, R),
+        "clusters_at_once": ffd_cuda.cluster_occupancy(N, R), "n_open": n_open,
+        "parity": "exact", "max_abs_err": err,
+        "lanes_call_ms": time_cuda(lambda: ffd_cuda.ffd_solve_lanes(*args, max_nodes=N), runs=20),
+        "lanes_device_ms": lanes_dev["ffd_kernel"], "lanes_records": lanes_kept,
+        "single_lane_device_ms": one_dev["ffd_kernel"], "single_lane_records": one_kept,
+        "input_bytes": sum(a.numel() * a.element_size() for a in args),
+        "table_bytes": 2 * L * G * (-(-T // 4) * 4) * 4,
+        "bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+
+
+def optimizer_phase(dev, smi: str, pool, catalog, headline, pods8) -> dict:
+    """Phase 12: the optimizer lane, the default solve. The lane-on solve on
+    the card against the CPU (the headline's first solve, config8, frag
+    seeds 0-11: equal plans and outcomes); the headline warm, lane off and
+    on, against the reference's gate; the lane launch exact against plain
+    solves on the kernel's three branches; the reference's
+    ``config6_frag_optimizer`` row on the port. Returns the FFD kernel's
+    launches on the lane-on headline solve and the lane shapes' times."""
+    from karpenter_provider_aws_tpu_torch.models import labels as lbl
+    from karpenter_provider_aws_tpu_torch.models.pod import make_pods
+    from karpenter_provider_aws_tpu_torch.ops import ffd, ffd_cases, ffd_cuda, solve_cases
+    from karpenter_provider_aws_tpu_torch.ops.encode import bucket, encode_problem, pad_problem
+    from karpenter_provider_aws_tpu_torch.scheduling import TorchSolver
+    from karpenter_provider_aws_tpu_torch.scheduling import optimizer
+    from karpenter_provider_aws_tpu_torch.scheduling.oracle import ffd_oracle, oracle_cost
+    from karpenter_provider_aws_tpu_torch.scheduling.solver import MAX_INSTANCE_TYPE_OPTIONS
+
+    os.environ.pop("KARPENTER_TPU_OPTIMIZER", None)  # the default: the lane on
+    pkg = SimpleNamespace(lbl=lbl, make_pods=make_pods)
+
+    def timed(pods, iters):
+        """Warm solves of ``pods`` (FRAG_WARMUP untimed, then ``iters``
+        timed), the lane off then on: ([off walls, on walls], [off stages,
+        on stages]); every lane-on solve must have run the lane."""
+        walls, stages = [], []
+        for lane in ("0", "1"):
+            os.environ["KARPENTER_TPU_OPTIMIZER"] = lane
+            solver = TorchSolver()
+            for _ in range(FRAG_WARMUP):
+                solver.solve(pods, [pool], catalog)
+            walls.append([]), stages.append([])
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                solver.solve(pods, [pool], catalog)
+                walls[-1].append((time.perf_counter() - t0) * 1e3)
+                stages[-1].append(dict(solver.timings))
+        os.environ.pop("KARPENTER_TPU_OPTIMIZER")
+        if any(st.get("opt_lane") in (None, "disabled") or "opt_fetch_ms" not in st
+               for st in stages[1]):
+            raise AssertionError("a timed lane-on solve did not run the lane")
+        return walls, stages
+
+    # 12a. the lane-on solve on the card against the CPU, same seed: the
+    # headline's first solve (its launches counted), config8, frag 0-11
+    def solve_both(pods, cuda_solver, cpu_solver, what):
+        ffd_cuda.LAUNCHES = ffd_cuda.LANES = 0
+        t0 = time.perf_counter()
+        res = cuda_solver.solve(pods, [pool], catalog)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches, lanes_run = ffd_cuda.LAUNCHES, ffd_cuda.LANES
+        cpu = cpu_solver.solve(pods, [pool], catalog)
+        same_plan(res, cpu, what)
+        lane, cpu_lane = cuda_solver.timings.get("opt_lane"), cpu_solver.timings.get("opt_lane")
+        if lane != cpu_lane:
+            raise AssertionError(f"{what}: lane outcome {lane} on the card, {cpu_lane} on the CPU")
+        t = cuda_solver.timings
+        return {"outcome": lane, "ffd_cost": t.get("opt_ffd_cost", res.total_cost),
+                "served_cost": res.total_cost, "pods": len(pods), "placed": res.pods_placed(),
+                "lp_gap": t.get("lp_gap"), "rows": t.get("n_rows"), "lane_rows": t.get("opt_rows"),
+                "backend": res.provenance["backend"], "wall_ms": wall_ms,
+                "stages_ms": {k: t.get(k) for k in LANE_STAGES},
+                "launches": launches, "lanes": lanes_run}, res
+
+    solved = {}
+    solved["headline"], _ = solve_both(headline, TorchSolver(), TorchSolver(device="cpu"),
+                                       "the lane-on headline")
+    launches, lanes_run = solved["headline"]["launches"], solved["headline"]["lanes"]
+    if solved["headline"]["outcome"] in (None, "disabled") or launches != 1 + optimizer._ROUNDS \
+            or lanes_run != 1 + optimizer._ROUNDS * LANES:
+        raise AssertionError(f"the lane-on headline ran {launches} launches of {lanes_run} lanes, "
+                             f"outcome {solved['headline']['outcome']}")
+    solved["config8"], _ = solve_both(pods8, TorchSolver(), TorchSolver(device="cpu"), "config8")
+    cuda_solver, cpu_solver = TorchSolver(), TorchSolver(device="cpu")
+    ratios, frag_pods = [], []
+    for seed in range(FRAG_SEEDS):
+        pods = solve_cases.frag_workload(pkg, seed)
+        frag_pods.append(len(pods))
+        row, res = solve_both(pods, cuda_solver, cpu_solver, f"frag seed {seed}")
+        base = oracle_cost(ffd_oracle(encode_problem(pods, catalog, nodepool=pool))[0])
+        row["oracle_cost"], row["cost_vs_oracle"] = base, res.total_cost / base
+        ratios.append(row["cost_vs_oracle"])
+        solved[f"frag{seed}"] = row
+    # the noise's float32 values of every 24-bit integer, on the CPU and the
+    # card: the integer bits are the same by construction, the logs are each
+    # device's libm
+    bits = torch.arange(1 << 24, dtype=torch.int64)
+    differ = int((optimizer.gumbel_of_bits(bits).view(torch.int32)
+                  != optimizer.gumbel_of_bits(bits.to(dev)).cpu().view(torch.int32)).sum())
+    emit({"phase": "optimizer_solves", "solves": solved, "cpu_plan_equal": True,
+          "headline_launches": launches, "headline_lanes": lanes_run,
+          "gumbel_float32_differ": differ, "gumbel_inputs": 1 << 24, "card": smi})
+
+    # 12b. the headline warm, the lane off then on (the reference's gate,
+    # opt_p99 <= 12 x ffd_p50, on the port's main path)
+    hwalls, hstages = timed(headline, HEADLINE_ITERS)
+    emit({"phase": "optimizer_headline", "pods": len(headline), "iters": HEADLINE_ITERS,
+          "ffd_p50_ms": _pct(hwalls[0], 50), "ffd_p99_ms": _pct(hwalls[0], 99),
+          "opt_p50_ms": _pct(hwalls[1], 50), "opt_p99_ms": _pct(hwalls[1], 99),
+          "gate_opt_p99_le_12x_ffd_p50": _pct(hwalls[1], 99) <= 12 * _pct(hwalls[0], 50),
+          "outcomes": sorted({st["opt_lane"] for st in hstages[1]}),
+          "median_ms": {k: statistics.median(st[k] for st in hstages[1]) for k in LANE_STAGES},
+          "lane_rows": hstages[1][-1]["opt_rows"], "card": smi})
+
+    # 12c. the lane launch against plain solves: round 0 of the lane program
+    # on config8 (one CTA holds the rows), the headline at 4,096 rows and at
+    # the rows its lane-on solve gave the lanes (eight CTAs), and seeded
+    # lanes of the global-memory branch
+    def program_lanes(pods):
+        problem = encode_problem(pods, catalog, nodepool=pool)
+        inp = TorchSolver()._device_inputs(pad_problem(problem, bucket(len(problem.group_pods))))
+        return optimizer.first_round(inp, LANES)
+
+    gb = ffd_cases.card_cases()["global_branch"]
+    gargs = optimizer.first_round(to_device(dict(zip(FFD_FIELDS, gb[0])), ffd, dev), LANES,
+                                  seed=1)
+    head_args = program_lanes(headline)
+    lane_rows = int(solved["headline"]["lane_rows"])
+    lane_shapes = {}
+    for key, args, N in ((f"config8_{CONFIG8_ROWS}", program_lanes(pods8), CONFIG8_ROWS),
+                         ("headline_4096", head_args, 4096),
+                         (f"headline_{lane_rows}", head_args, lane_rows),
+                         ("global_branch", gargs, gb[1])):
+        lane_shapes[key] = lane_check(ffd, ffd_cuda, args, N)
+    if [s["active_ctas"] for s in lane_shapes.values()][0] != 1 \
+            or any(s["active_ctas"] != ffd_cuda.CLUSTER for s in list(lane_shapes.values())[1:]) \
+            or lane_shapes["global_branch"]["resident"]:
+        raise AssertionError("the lane shapes did not cover the kernel's three layouts")
+    emit({"phase": "optimizer_lanes", "shapes": lane_shapes, "card": smi})
+
+    # 12d. the reference's config6_frag_optimizer row on the port: the lane
+    # off, then on, on frag seed 0 (3 warm-ups, 10 timed solves each), and
+    # the lane's device time from the profiler
+    pods0 = solve_cases.frag_workload(pkg, 0)
+    (ffd_walls, opt_walls), (_, stages) = timed(pods0, FRAG_ITERS)
+    solver = TorchSolver()
+    solver.solve(pods0, [pool], catalog)
+    problem = encode_problem(pods0, catalog, nodepool=pool)
+    inp = solver._device_inputs(pad_problem(problem, bucket(len(problem.group_pods))))
+    rows0 = int(stages[-1]["opt_rows"])
+    rank_k = min(MAX_INSTANCE_TYPE_OPTIONS, problem.capacity.shape[0])
+
+    def lane_only():
+        return optimizer.fetch(optimizer.dispatch_optimizer(inp, rows0, rank_k))
+
+    lane_only()
+    _, lane_wall_ms, prof = _profiled(lane_only)
+    from torch.autograd import DeviceType
+
+    lane_kernel_ms = lane_other_ms = 0.0
+    kernel_records = 0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        ms = (evt.self_cuda_time_total if us is None else us) / 1e3
+        if "ffd_kernel" in evt.key:
+            lane_kernel_ms += ms
+            kernel_records += evt.count
+        else:
+            lane_other_ms += ms
+    if kernel_records != optimizer._ROUNDS:
+        raise AssertionError(f"the lane's trace kept {kernel_records} kernel records, "
+                             f"expected {optimizer._ROUNDS}")
+    prof_solve = profile_solve(lambda: solver.solve(pods0, [pool], catalog))
+    prof_solve["phase"] = "profile_lane_solve"
+
+    def med(key):
+        return statistics.median(st[key] for st in stages)
+
+    adopted = sum(1 for k, r in solved.items() if k.startswith("frag") and r["outcome"] == "adopted")
+    p95 = _pct(ratios, 95)
+    emit({"phase": "optimizer", "benchmark": "config6_frag_optimizer", "seeds": FRAG_SEEDS,
+          "pods_per_seed": frag_pods,
+          "cost_vs_oracle_p50": _pct(ratios, 50), "cost_vs_oracle_p95": p95,
+          "cost_vs_oracle_max": max(ratios), "gate_cost_vs_oracle_p95_lt_0_97": p95 < 0.97,
+          "lane_adopted": adopted, "lane_rejected": FRAG_SEEDS - adopted,
+          "ffd_p50_ms": _pct(ffd_walls, 50), "ffd_p99_ms": _pct(ffd_walls, 99),
+          "opt_p50_ms": _pct(opt_walls, 50), "opt_p99_ms": _pct(opt_walls, 99),
+          "gate_opt_p99_le_12x_ffd_p50": _pct(opt_walls, 99) <= 12 * _pct(ffd_walls, 50),
+          "lane_rows": rows0, "lane_kernel_device_ms": lane_kernel_ms,
+          "lane_kernel_records": kernel_records, "lane_other_device_ms": lane_other_ms,
+          "lane_device_ms": lane_kernel_ms + lane_other_ms, "lane_only_wall_ms": lane_wall_ms,
+          "median_ms": {"opt_dispatch": med("opt_dispatch_ms"),
+                        "opt_fetch_and_validate": med("opt_fetch_ms"),
+                        "opt_refine_and_decode": med("opt_refine_ms"),
+                        "ffd_refine_and_decode": med("decode_ms"),
+                        "ffd_device": med("device_ms"), "encode": med("encode_ms")},
+          "lane_input_bytes": stages[-1]["opt_input_bytes"],
+          "backend": solved["frag0"]["backend"], "card": smi})
+    emit(prof_solve)
+    return {"launches": launches, "lanes": lanes_run, "shapes": lane_shapes}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     from karpenter_provider_aws_tpu_torch.catalog import CatalogProvider
     from karpenter_provider_aws_tpu_torch.models import NodePool, Operator, Requirement
     from karpenter_provider_aws_tpu_torch.models import labels as lbl
@@ -1037,6 +1299,10 @@ def main() -> int:
           # clusters of the FFD kernel the card holds at once, on each branch
           "ffd_clusters": {"resident_8192x10": ffd_cuda.cluster_occupancy(8192, 10),
                            "global_20480x10": ffd_cuda.cluster_occupancy(20480, 10)}})
+
+    # phases 3-11 keep their checks with the optimizer lane off (the default
+    # since the lane's slice); phase 12 turns it back on
+    os.environ["KARPENTER_TPU_OPTIMIZER"] = "0"
 
     # 3. parity: kernel vs plain version on the same CUDA tensors, on
     # ops/ffd_cases.py's cases (both branches), the headline and config8
@@ -1153,6 +1419,7 @@ def main() -> int:
     repack_line["launches_by_path"] = {"consolidation": repack_line["launches"],
                                        "churn": churn["launches"]}
     market_launches = market_phase(smi)
+    lanes = optimizer_phase(dev, smi, pool, catalog, pods, pods8)
 
     main = timing[f"headline_{N_main}"]  # the FFD kernel's line: the main path's shapes
     emit({"kernels": [{
@@ -1161,12 +1428,19 @@ def main() -> int:
         "replaces": "karpenter_provider_aws_tpu/ops/ffd_pallas.py:66",
         "tpu_kernel": "ops/ffd_pallas.py::_kernel",
         "launches": launches, "parity": "exact", "max_abs_err": max_err,
-        "launches_by_path": {"headline": launches, "market": market_launches},
+        "launches_by_path": {"headline": launches, "market": market_launches,
+                             "headline_lane_on": lanes["launches"]},
+        "lanes_by_path": {"headline_lane_on": lanes["lanes"]},
+        "lane_launch": {k: {f: v[f] for f in ("N", "lanes", "lanes_device_ms",
+                                               "single_lane_device_ms", "bound_ms",
+                                               "clusters_at_once")}
+                        for k, v in lanes["shapes"].items()},
         "rows": N_main, "ms": main["kernel_ms"], "device_ms": main["device_ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
     }, repack_line]})
+    emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -56,7 +56,8 @@ def state_from_reference(
     node_cap: np.ndarray,      # [N, R] float
     node_window: np.ndarray,   # [N, Z, C] bool
     n_open: int,
-    device="cpu",
+    *,
+    device,
 ) -> _State:
     """An ``ops.ffd._State`` of pre-opened rows from the JAX package's
     ``_State`` fields; the window becomes this package's bitmask."""

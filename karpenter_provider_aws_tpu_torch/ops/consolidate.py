@@ -933,6 +933,76 @@ def delete_prefix(ct: ClusterTensors, mask: np.ndarray) -> list[int]:
     return candidates[:lo]
 
 
+def optimizer_replace_sets(
+    ct: ClusterTensors,
+    candidates,
+    max_set: int = 16,
+    proposals: int = 8,
+    seed: int = 0,
+) -> list:
+    """Seeded subset proposals for the N->1 multi-replace chooser: the
+    optimizer lane's consolidation arm, copied from the JAX package.
+
+    The baseline chooser walks cost-ordered PREFIXES of the candidate
+    list, so a replaceable set that skips a middle candidate (one whose
+    pods block the single-node overflow absorb) is invisible to it. This
+    proposes the leave-one-out subsets of the top prefix, then
+    ``proposals`` price-biased random subsets of the candidate rows; the
+    caller evaluates every proposal (``repack_set_feasible`` and
+    ``replacement_for_groups``) and commits only a strictly cheaper, fully
+    validated set.
+
+    Deterministic: the RNG is seeded from (seed, the candidate rows), so
+    the same snapshot proposes the same sets."""
+    import random as _random
+
+    cand = [int(i) for i in candidates][:32]
+    if len(cand) < 3:
+        return []  # the prefix walk already enumerates every subset
+    rng = _random.Random(f"{seed}:{','.join(map(str, cand))}")
+    price = {i: max(float(ct.price[i]), 1e-6) for i in cand}
+    out: list = []
+    seen: set = set()
+    # systematic leave-one-out of the top prefix FIRST: the canonical
+    # blocked-prefix shape is one candidate whose pods force an expensive
+    # shared replacement, so dropping exactly it is enumerated, not sampled
+    head = cand[: min(max_set, len(cand))]
+    if len(head) >= 3:
+        for i in range(len(head)):
+            subset = sorted(head[:i] + head[i + 1:])
+            key = tuple(subset)
+            if key not in seen:
+                seen.add(key)
+                out.append(subset)
+    n_target = len(out) + proposals
+    for _ in range(proposals * 4):
+        if len(out) >= n_target:
+            break
+        size = rng.randint(2, min(max_set, len(cand)))
+        pool = list(cand)
+        subset: list[int] = []
+        while pool and len(subset) < size:
+            # price-biased sample without replacement: expensive rows are
+            # where replacement savings live
+            total = sum(price[i] for i in pool)
+            draw = rng.random() * total
+            acc = 0.0
+            pick = pool[-1]
+            for i in pool:
+                acc += price[i]
+                if draw <= acc:
+                    pick = i
+                    break
+            pool.remove(pick)
+            subset.append(pick)
+        key = tuple(sorted(subset))
+        if key in seen:
+            continue
+        seen.add(key)
+        out.append(sorted(subset))
+    return out
+
+
 def replacement_for_groups(
     ct: ClusterTensors,
     overflow: dict,

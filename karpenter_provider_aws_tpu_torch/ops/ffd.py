@@ -41,6 +41,13 @@ class FFDResult(NamedTuple):
     placed: torch.Tensor       # [G, N] int32 pods of group g placed on node n
     unplaced: torch.Tensor     # [G] int32 pods that fit nowhere (or overflowed N)
 
+    def total_cost(self) -> torch.Tensor:
+        """$/hr of the opened rows, summed in float64 (one sum per lane
+        where the fields carry a leading lane axis)."""
+        n = self.node_price.shape[-1]
+        live = torch.arange(n, device=self.node_price.device) < self.n_open[..., None]
+        return torch.where(live, self.node_price.double(), 0.0).sum(-1)
+
 
 class _State(NamedTuple):
     node_type: torch.Tensor    # [N] int32
@@ -195,12 +202,36 @@ def ffd_solve(
     gw_h = group_window.cpu().tolist()
     mpn_h = [min(int(m), _BIG) for m in max_per_node.cpu().tolist()]
     for g in range(G):
+        if counts_h[g] == 0:
+            continue  # places nothing and changes no row, as the kernel skips it
         placed[g], u = _step(
             capacity, type_window, int(n_pre), state, requests[g],
             counts_h[g], compat[g], price[g], gw_h[g], mpn_h[g],
         )
         unplaced[g] = u
     return FFDResult(*state[:6], placed=placed, unplaced=unplaced)
+
+
+def ffd_solve_lanes(
+    requests: torch.Tensor,      # [L, G, R] float32
+    counts: torch.Tensor,        # [L, G] int32
+    compat: torch.Tensor,        # [L, G, T] bool
+    capacity: torch.Tensor,      # [L, T, R] float32
+    price: torch.Tensor,         # [L, G, T] float32, inf where unusable
+    group_window: torch.Tensor,  # [L, G] int32
+    type_window: torch.Tensor,   # [L, T] int32
+    max_per_node: torch.Tensor,  # [L, G] int32
+    max_nodes: int,
+) -> FFDResult:
+    """L independent solves from no open rows, one ``ffd_solve`` per lane;
+    the fields of the result carry the leading lane axis. The plain
+    counterpart of ``ops.ffd_cuda.ffd_solve_lanes``' single launch."""
+    outs = [
+        ffd_solve(requests[i], counts[i], compat[i], capacity[i], price[i], group_window[i],
+                  type_window[i], max_per_node=max_per_node[i], max_nodes=max_nodes)
+        for i in range(requests.shape[0])
+    ]
+    return FFDResult(*(torch.stack(f) for f in zip(*outs)))
 
 
 def compact_plan(placed: torch.Tensor, max_entries: int):

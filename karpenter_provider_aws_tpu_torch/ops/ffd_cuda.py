@@ -5,7 +5,9 @@ axis runs inside one kernel, on one thread-block cluster of ``CLUSTER`` CTAs,
 with the node state resident in the shared memory of ``active_ctas(N, R)``
 of them (or, past ``ffd_smem_bytes``'s budget, in a global scratch).
 ``ffd_solve`` takes the same arguments as ``ops.ffd.ffd_solve`` and returns
-the same ``FFDResult``.
+the same ``FFDResult``; ``ffd_solve_lanes`` runs L independent solves (the
+optimizer lane's) as one launch of L clusters, as ``ops.ffd.ffd_solve_lanes``
+runs them lane by lane.
 Tensors on the CPU go through the plain version; tensors on a CUDA device
 launch the kernel, or raise. There is no fallback from one to the other.
 """
@@ -23,6 +25,9 @@ from .ffd import FFDResult, _State
 
 #: kernel launches since the last reset (a run sets it to 0 and reads it)
 LAUNCHES = 0
+#: lanes (clusters, one solve each) those launches ran: 1 per ``ffd_solve``
+#: launch, L per ``ffd_solve_lanes`` launch
+LANES = 0
 
 #: CTAs of one problem's cluster, and threads of one CTA (``kCluster``, ``kThreads``)
 CLUSTER = 8
@@ -144,24 +149,62 @@ def ffd_solve(
         )
     if requests.device.type != "cuda":
         raise ValueError(f"no FFD kernel for device {requests.device}")
-    return _launch(requests, counts, compat, capacity, price, group_window,
-                   type_window, max_per_node, max_nodes, init_state, n_pre)
-
-
-def _launch(requests, counts, compat, capacity, price, group_window, type_window,
-            max_per_node, max_nodes, init_state, n_pre) -> FFDResult:
-    global LAUNCHES
     dev = requests.device
     G, R = requests.shape
-    T = capacity.shape[0]
-    if not 1 <= R <= _MAX_R:
-        raise ValueError(f"R={R} resource axes; the kernel takes 1..{_MAX_R}")
-    if not 1 <= T <= _MAX_T:
-        raise ValueError(f"T={T} types; the kernel takes 1..{_MAX_T}")
     if max_per_node is None:
         max_per_node = torch.full((G,), _BIG, dtype=torch.int32, device=dev)
     state = init_state if init_state is not None else _plain.empty_state(max_nodes, R, dev)
     N = state.used.shape[0]
+    if not 0 <= int(n_pre) <= N:
+        raise ValueError(f"n_pre={n_pre} outside [0, {N}]")
+    n_pre_t = torch.full((1,), int(n_pre), dtype=torch.int32, device=dev)
+    one = [t.unsqueeze(0) for t in (requests, counts, compat, capacity, price, group_window,
+                                    type_window, max_per_node)]
+    out = _launch(*one, _State(*(t.unsqueeze(0) for t in state)), n_pre_t)
+    return FFDResult(*(t[0] for t in out))
+
+
+def ffd_solve_lanes(
+    requests: torch.Tensor,      # [L, G, R] float32
+    counts: torch.Tensor,        # [L, G] int32
+    compat: torch.Tensor,        # [L, G, T] bool
+    capacity: torch.Tensor,      # [L, T, R] float32
+    price: torch.Tensor,         # [L, G, T] float32, inf where unusable
+    group_window: torch.Tensor,  # [L, G] int32 window bits
+    type_window: torch.Tensor,   # [L, T] int32 window bits
+    max_per_node: torch.Tensor,  # [L, G] int32
+    max_nodes: int,
+) -> FFDResult:
+    """L independent FFD solves, each from no open rows: ONE kernel launch of
+    L clusters for CUDA tensors, the plain version lane by lane for CPU
+    tensors. The result's fields carry the leading lane axis."""
+    if requests.device.type == "cpu":
+        return _plain.ffd_solve_lanes(requests, counts, compat, capacity, price, group_window,
+                                      type_window, max_per_node, max_nodes)
+    if requests.device.type != "cuda":
+        raise ValueError(f"no FFD kernel for device {requests.device}")
+    L, _G, R = requests.shape
+    dev = requests.device
+    empty = _plain.empty_state(max_nodes, R, dev)
+    state = _State(*(t.unsqueeze(0).expand(L, *t.shape).contiguous() for t in empty))
+    n_pre_t = torch.zeros(L, dtype=torch.int32, device=dev)
+    return _launch(requests, counts, compat, capacity, price, group_window, type_window,
+                   max_per_node, state, n_pre_t)
+
+
+def _launch(requests, counts, compat, capacity, price, group_window, type_window,
+            max_per_node, state: _State, n_pre_t) -> FFDResult:
+    """One launch of ``L = requests.shape[0]`` clusters, one per lane; every
+    argument carries the leading lane axis."""
+    global LAUNCHES, LANES
+    dev = requests.device
+    L, G, R = requests.shape
+    T = capacity.shape[1]
+    if not 1 <= R <= _MAX_R:
+        raise ValueError(f"R={R} resource axes; the kernel takes 1..{_MAX_R}")
+    if not 1 <= T <= _MAX_T:
+        raise ValueError(f"T={T} types; the kernel takes 1..{_MAX_T}")
+    N = state.used.shape[1]
     for name, t, dtype, shape in (
         ("requests", requests, torch.float32, (G, R)),
         ("counts", counts, torch.int32, (G,)),
@@ -177,37 +220,35 @@ def _launch(requests, counts, compat, capacity, price, group_window, type_window
         ("node_cap", state.node_cap, torch.float32, (N, R)),
         ("node_window", state.node_window, torch.int32, (N,)),
         ("n_open", state.n_open, torch.int32, ()),
+        ("n_pre", n_pre_t, torch.int32, ()),
     ):
-        _check(name, t, dtype, shape, dev)
-    if not 0 <= int(n_pre) <= N:
-        raise ValueError(f"n_pre={n_pre} outside [0, {N}]")
+        _check(name, t, dtype, (L, *shape), dev)
     if not 1 <= N <= MAX_ROWS:
         raise ValueError(f"N={N} rows; the kernel takes 1..{MAX_ROWS}")
     on_chip = resident(N, R)
     cluster_occupancy(N, R, dev)
 
-    n_pre_t = torch.full((1,), int(n_pre), dtype=torch.int32, device=dev)
     out = FFDResult(
-        node_type=torch.empty(N, dtype=torch.int32, device=dev),
-        node_price=torch.empty(N, dtype=torch.float32, device=dev),
-        used=torch.empty((N, R), dtype=torch.float32, device=dev),
-        node_cap=torch.empty((N, R), dtype=torch.float32, device=dev),
-        node_window=torch.empty(N, dtype=torch.int32, device=dev),
-        n_open=torch.empty((), dtype=torch.int32, device=dev),
+        node_type=torch.empty((L, N), dtype=torch.int32, device=dev),
+        node_price=torch.empty((L, N), dtype=torch.float32, device=dev),
+        used=torch.empty((L, N, R), dtype=torch.float32, device=dev),
+        node_cap=torch.empty((L, N, R), dtype=torch.float32, device=dev),
+        node_window=torch.empty((L, N), dtype=torch.int32, device=dev),
+        n_open=torch.empty(L, dtype=torch.int32, device=dev),
         # the kernel stores only nonzero placements and unplaced counts
-        placed=torch.zeros((G, N), dtype=torch.int32, device=dev),
-        unplaced=torch.zeros(G, dtype=torch.int32, device=dev),
+        placed=torch.zeros((L, G, N), dtype=torch.int32, device=dev),
+        unplaced=torch.zeros((L, G), dtype=torch.int32, device=dev),
     )
     lib = _lib()
     Tp = -(-T // 4) * 4  # the table's row stride: 16-byte copies
-    type_fit = torch.empty((G, Tp), dtype=torch.int32, device=dev)
-    type_price = torch.empty((G, Tp), dtype=torch.float32, device=dev)
-    recs = torch.empty(((G + 1) * lib.ffd_record_bytes(),), dtype=torch.uint8, device=dev)
-    gstate = None if on_chip else torch.empty((2, R, N), dtype=torch.float32, device=dev)
+    type_fit = torch.empty((L, G, Tp), dtype=torch.int32, device=dev)
+    type_price = torch.empty((L, G, Tp), dtype=torch.float32, device=dev)
+    recs = torch.empty((L * (G + 1) * lib.ffd_record_bytes(),), dtype=torch.uint8, device=dev)
+    gstate = None if on_chip else torch.empty((L, 2, R, N), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ffd_solve_launch(
-            1, active_ctas(N, R), G, T, R, N,
+            L, active_ctas(N, R), G, T, R, N,
             requests.data_ptr(), counts.data_ptr(), compat.data_ptr(),
             capacity.data_ptr(), price.data_ptr(), group_window.data_ptr(),
             type_window.data_ptr(), max_per_node.data_ptr(), n_pre_t.data_ptr(),
@@ -222,4 +263,5 @@ def _launch(requests, counts, compat, capacity, price, group_window, type_window
         )
     _raise_on(lib, err, "launch")
     LAUNCHES += 1
+    LANES += L
     return out

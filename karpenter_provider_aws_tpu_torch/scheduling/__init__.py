@@ -1,3 +1,3 @@
-"""The Solver boundary: ``TorchSolver`` and the plan types it returns."""
+"""The Solver boundary: ``TorchSolver``, ``HostSolver`` and the plan types they return."""
 
-from .solver import ExistingNode, NodeSpec, SolveResult, TorchSolver  # noqa: F401
+from .solver import ExistingNode, HostSolver, NodeSpec, SolveResult, TorchSolver  # noqa: F401

@@ -7,15 +7,32 @@ and compacts the plan with torch ops on the device, copies the sparse plan to
 the host in ONE transfer, then refines and decodes it with the reference's
 host code.
 
+The optimizer lane (``scheduling/optimizer.py``) runs by default, as in the
+reference: beside each eligible FFD solve, 8 lanes x 3 rounds of seeded LP
+rounding and group-order jitter, each round ONE launch of the FFD kernel
+over its lanes, and the reference's host adoption contract picks the plan
+(``_optimizer_arbitrate``). ``KARPENTER_TPU_OPTIMIZER=0`` serves the FFD plan
+alone. One ordering differs from the reference on purpose: the reference
+enqueues the lane before any transfer, because over its TPU link each
+round trip costs; here the lane's three launches are enqueued after the FFD
+plan's one device-to-host copy and before the FFD plan's host refine and
+decode, so that the card runs the lanes while the host refines.
+
 Multi-nodepool handling mirrors the core scheduler: nodepools are tried in
 weight order; pods a nodepool cannot place fall through to the next.
 
 Market state (reservation windows, a market model's reclaim premium) rides
 the catalog's price and availability tensors, as in the reference.
 
+``HostSolver`` is the reference's greedy per-pod FFD (``scheduling/oracle.py``)
+behind the same boundary: a measuring stick for ``cost_vs_oracle`` and
+``cost_vs_greedy``. No solve falls through to it.
+
 Not carried yet, and refused when asked for (``NotImplementedError``): gang
-scheduling, the optimizer lane, partition lanes and why-attribution. There is no degraded mode: a CUDA solve either runs the
-kernel or raises.
+scheduling, lazy lane admission on a cold start
+(``KARPENTER_TPU_OPT_COLD_SKIP=1``), partition lanes and why-attribution.
+There is no degraded mode: a CUDA solve either runs the kernel or raises,
+and a lane that raises raises out of the solve.
 """
 
 from __future__ import annotations
@@ -43,6 +60,7 @@ from ..ops.ffd import (
     rank_launch_options,
     unpack_window_bits,
 )
+from . import optimizer as _opt
 
 # Launch-path truncation parity: instance.go:52-53 — at most 60 instance
 # types are carried into a single launch request.
@@ -101,6 +119,64 @@ class SolveResult:
 
     def pods_placed(self) -> int:
         return sum(len(s.pods) for s in self.node_specs) + len(self.binds)
+
+
+def lp_lower_bound(problem: EncodedProblem) -> float:
+    """Fractional (LP-relaxation) lower bound on ANY feasible packing's
+    cost (SURVEY section 7.3), via the resource-wise charging argument.
+
+    For a FIXED resource r, charge each pod ``min_t price_t * req_r /
+    cap_tr`` over its usable types: any real node of type t* collects at
+    most ``price_t* * (sum req_r) / cap_t*r <= price_t*`` from its pods, so
+    the per-r total under-counts every node's price — a valid bound. The
+    final bound is the MAX over resources (each r gives a valid bound).
+    Charging ``price / min_r(cap/req)`` per pod — the per-pod binding
+    resource — is NOT valid: a node mixing cpu-heavy and mem-heavy pods
+    collects more than its price (sum of per-pod maxima exceeds the max of
+    sums).
+    """
+    costs = lp_slot_costs(problem)  # [G, R] per-resource per-pod charges
+    cnt = problem.counts[: costs.shape[0]].astype(np.float64)
+    ok = np.isfinite(costs).any(axis=1)
+    if not ok.any():
+        return 0.0
+    # per resource: sum of charges over pods with a usable type; invalid
+    # (inf) charges mean the group doesn't request r — charge 0 there
+    charges = np.where(np.isfinite(costs), costs, 0.0)
+    totals = (charges[ok] * cnt[ok][:, None]).sum(axis=0)  # [R]
+    return float(totals.max())
+
+
+def lp_slot_costs(problem: EncodedProblem) -> np.ndarray:
+    """[G, R] per-pod charge matrix behind ``lp_lower_bound``:
+    ``min_t price_t * req_gr / cap_tr`` over usable types, inf where the
+    group does not request r or has no usable type."""
+    G = len(problem.group_pods)
+    R = problem.requests.shape[1]
+    if G == 0:
+        return np.zeros((0, R))
+    req = problem.requests[:G]
+    price = problem.price[:G]
+    live = np.einsum(
+        "gzc,tzc->gt", problem.group_window[:G], problem.type_window
+    ) > 0
+    usable = problem.compat[:G] & np.isfinite(price) & live
+    out = np.full((G, R), np.inf)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for r in range(R):
+            col = req[:, r]
+            rows = col > 0
+            if not rows.any():
+                continue
+            # charge[g, t] = price_t * req_gr / cap_tr (inf where unusable
+            # or the type lacks resource r entirely)
+            charge = np.where(
+                usable[rows] & (problem.capacity[None, :, r] > 0),
+                price[rows] * (col[rows][:, None] / problem.capacity[None, :, r]),
+                np.inf,
+            )
+            out[rows, r] = charge.min(axis=1)
+    return out
 
 
 def _node_rows_bucket(n: int, minimum: int = 64) -> int:
@@ -522,12 +598,67 @@ def _encode_existing(problem: EncodedProblem, existing: Sequence[ExistingNode]):
     )
 
 
+def _host_prefill(
+    problem: EncodedProblem, existing: Sequence[ExistingNode],
+) -> tuple[list[tuple[Pod, str]], EncodedProblem]:
+    """Numpy mirror of the device solve's pre-opened first-fit phase: land
+    groups on existing slack, return (binds, reduced problem) for the
+    fresh-capacity solve. Bound pods are taken from the FRONT of each
+    group's pod list so tail-based unplaced accounting stays valid."""
+    pre = _encode_existing(problem, existing)
+    if pre is None:
+        return [], problem
+    names, ptype, pused, pcap, pwin = pre
+    G = len(problem.group_pods)
+    free = pcap - pused
+    win = pwin.copy()
+    finite = np.isfinite(problem.price)
+    mpn = problem.max_per_node
+    binds: list[tuple[Pod, str]] = []
+    counts = problem.counts.copy()
+    group_pods = list(problem.group_pods)
+    for g in range(G):
+        cnt = int(counts[g])
+        if cnt == 0 or int(mpn[g]) < (1 << 30):
+            continue  # hostname-capped groups: host binder's job
+        req = problem.requests[g]
+        gw = problem.group_window[g]
+        elig = problem.compat[g][ptype] & finite[g][ptype]
+        elig &= (win & gw[None, :, :]).any(axis=(1, 2))
+        with_req = req > 0
+        with np.errstate(invalid="ignore", divide="ignore"):
+            ratio = np.where(
+                with_req[None, :],
+                np.floor((free + 1e-4) / np.where(with_req, req, 1.0)[None, :]),
+                np.inf,
+            )
+        k = np.clip(np.nanmin(ratio, axis=1), 0, float(1 << 30)).astype(np.int64)
+        k = np.where(elig, k, 0)
+        cum = np.cumsum(k) - k
+        take = np.clip(cnt - cum, 0, k).astype(np.int64)
+        total = int(take.sum())
+        if total == 0:
+            continue
+        free -= take[:, None] * req[None, :]
+        recv = take > 0
+        win[recv] &= gw[None, :, :]
+        plist = group_pods[g]
+        pos = 0
+        for i in np.nonzero(recv)[0]:
+            binds.extend((p, names[i]) for p in plist[pos: pos + int(take[i])])
+            pos += int(take[i])
+        group_pods[g] = plist[pos:]
+        counts[g] = cnt - total
+    if not binds:
+        return [], problem
+    return binds, dataclasses.replace(problem, counts=counts, group_pods=group_pods)
+
+
 def _refuse_unsupported() -> None:
     """Features the JAX package arms through its environment switches that
     this package does not carry: an explicit request raises instead of being
     ignored. Left unset, they are off here."""
     for var, what, off in (
-        ("KARPENTER_TPU_OPTIMIZER", "the optimizer lane", ("0",)),
         ("KARPENTER_TPU_WHY", "why-attribution", ("0",)),
         ("KARPENTER_TPU_PARTITION_SOLVE", "partition lanes", ("0", "auto")),
     ):
@@ -542,6 +673,10 @@ class TorchSolver:
     """Device-backed solver. ``device=None`` means ``"cuda"``; the CPU runs
     only when asked for (``device="cpu"``), through the plain PyTorch FFD.
     ``refine`` enables the packed-cost descent pass (``_refine_plan``)."""
+
+    #: several pools are staged (``_solve_multi_nodepool``): each later pool
+    #: is offered the pods the earlier ones are certain to leave
+    stages_pools = True
 
     def __init__(self, device=None, max_nodes: Optional[int] = None,
                  refine: bool = True):
@@ -564,9 +699,18 @@ class TorchSolver:
         # pass is skipped, re-checked every 8th solve
         self._refine_zero_streak: dict[tuple, int] = {}
         self._refine_skip_ctr: dict[tuple, int] = {}
+        # optimizer-lane admission memory: the last measured FFD-cost /
+        # LP-bound gap per problem signature (``optimizer.gap_key``); a
+        # signature within the tight threshold skips the lane
+        self._opt_gap_hist: dict[tuple, float] = {}
+        # cumulative lane outcomes, stamped into provenance
+        self._opt_counts = {"adopted": 0, "rejected": 0}
 
     def backend_label(self) -> str:
-        return "cuda-ffd" if self.device.type == "cuda" else "torch-plain"
+        """What computed the LAST solve's plan: ``+opt-lp`` when the lane's
+        plan shipped."""
+        base = "cuda-ffd" if self.device.type == "cuda" else "torch-plain"
+        return base + ("+opt-lp" if self.timings.get("opt_lane") == "adopted" else "")
 
     def device_name(self) -> str:
         if self.device.type == "cuda":
@@ -716,6 +860,7 @@ class TorchSolver:
         rows if the rows ran out, then commit-downsize, refine and decode."""
         G = len(problem.group_pods)
         t_dev = time.perf_counter()
+        n_first = N
         out, res = self._run(problem, dev_in, N + pre_extra, pre_rows, n_pre, GB, hist_key)
         unplaced_arr = out["unplaced"][:G]
         n_open = out["n_open"]
@@ -758,6 +903,10 @@ class TorchSolver:
             self._nz_hist.clear()
             self._refine_zero_streak.clear()
             self._refine_skip_ctr.clear()
+            self._opt_gap_hist.clear()
+        # the lane runs on the card while the host refines and decodes the
+        # FFD plan: it is enqueued after that plan's copy, before its refine
+        opt = self._maybe_dispatch_optimizer(problem, dev_in, n_first, n_pre, hist_key)
         ranked_idx, ranked_n, best_price = (
             out["ranked_idx"], out["ranked_n"], out["best_price"]
         )
@@ -824,7 +973,195 @@ class TorchSolver:
         self.timings["decode_ms"] = self.timings.get("decode_ms", 0.0) + (
             (time.perf_counter() - t_host) * 1e3
         )
-        return specs, binds, unplaced
+        return self._optimizer_arbitrate(problem, (specs, binds, unplaced), opt, hist_key)
+
+    def _maybe_dispatch_optimizer(self, problem, dev_in: dict, n_rows: int, n_pre: int,
+                                  hist_key) -> Optional[dict]:
+        """Enqueue the optimizer lane on the solve's device inputs, or return
+        None with the admission outcome counted, in the reference's order:
+        disabled, ``skipped_large``, ``skipped_existing``, ``skipped_tight``
+        (a problem without groups never gets here). A dispatch that raises
+        is not caught."""
+        _opt.refuse_cold_skip()
+        if not _opt.optimizer_enabled():
+            self.timings["opt_lane"] = "disabled"
+            _opt.count_outcome("disabled")
+            return None
+        outcome = None
+        if len(problem.group_pods) > _opt.max_groups():
+            # bulk placements amortize greedy tails: lanes there are device
+            # time for no win
+            outcome = "skipped_large"
+        elif n_pre > 0:
+            # a plan binding onto existing slack is incomparable to the
+            # lane's all-fresh repack
+            outcome = "skipped_existing"
+        else:
+            gap = self._opt_gap_hist.get(_opt.gap_key(problem, hist_key))
+            if gap is not None and gap <= _opt.tight_threshold():
+                outcome = "skipped_tight"
+        if outcome is not None:
+            self.timings["opt_lane"] = outcome
+            _opt.count_outcome(outcome)
+            return None
+        t0 = time.perf_counter()
+        opt = _opt.dispatch_optimizer(
+            dev_in, n_rows, rank_k=min(MAX_INSTANCE_TYPE_OPTIONS, problem.capacity.shape[0]))
+        self.timings["opt_dispatch_ms"] = self.timings.get("opt_dispatch_ms", 0.0) + (
+            (time.perf_counter() - t0) * 1e3
+        )
+        self.timings["opt_input_bytes"] = opt["input_bytes"]
+        self.timings["opt_rows"] = n_rows
+        return opt
+
+    def _optimizer_arbitrate(self, problem, ffd_out, opt: Optional[dict], hist_key) -> tuple:
+        """The adoption contract: fetch the lane's best plan, validate it on
+        the host (``optimizer.validate_plan``), run the same packed-cost
+        descent the FFD plan got, and serve it only when it prices strictly
+        cheaper while placing at least as many pods. Every other outcome
+        returns the FFD plan unchanged.
+
+        Also records the FFD plan's gap to the LP lower bound (``lp_gap``)
+        and the per-signature admission memory, whether or not a lane ran."""
+        specs, binds, unplaced = ffd_out
+        G = len(problem.group_pods)
+        ffd_cost = float(sum(s.estimated_price for s in specs))
+        # the bound is O(G x T x R) host numpy, memoized on the problem:
+        # paid when a lane is in flight (it IS the admission signal), else
+        # under a size cap
+        if not binds and specs and (opt is not None or problem.price.size <= 4_000_000):
+            bound = _opt.lp_bound_for(problem)
+            if bound > 0 and ffd_cost > 0:
+                gap = ffd_cost / bound
+                self.timings["lp_gap"] = round(gap, 4)
+                if len(self._opt_gap_hist) > 4096:
+                    # content-digested keys are unbounded under churn
+                    self._opt_gap_hist.clear()
+                self._opt_gap_hist[_opt.gap_key(problem, hist_key)] = gap
+        if opt is None:
+            return ffd_out
+        self.timings["opt_ffd_cost"] = ffd_cost
+        t0 = time.perf_counter()
+        got = _opt.fetch(opt)
+        n_open, rows, GB = got["n_open"], opt["rows"], opt["GB"]
+        if got["total_nz"] > got["nz"].shape[0]:
+            placed = opt["placed_dev"].cpu().numpy().astype(np.int32)
+        else:
+            placed = np.zeros((GB, rows), dtype=np.int32)
+            valid = got["nz"] >= 0
+            placed.reshape(-1)[got["nz"][valid]] = got["nz_cnt"][valid]
+        opt = None  # the device buffers are not needed past this point
+        unplaced_arr = got["unplaced"][:G]
+        node_type = np.asarray(got["node_type"], dtype=np.int64).copy()
+        node_price = np.asarray(got["node_price"], dtype=np.float32).copy()
+        Z, C = problem.group_window.shape[1], problem.group_window.shape[2]
+        node_window = unpack_window_bits(got["node_window"], Z, C)
+        used = placed[:G].T.astype(np.float32) @ problem.requests[:G]
+        # used=None: the validator's used-consistency branch would compare
+        # a product of the same inputs just computed
+        ok, why = _opt.validate_plan(problem, node_type, node_price, None, placed,
+                                     node_window, n_open, unplaced_arr)
+        t1 = time.perf_counter()
+        self.timings["opt_fetch_ms"] = self.timings.get("opt_fetch_ms", 0.0) + (t1 - t0) * 1e3
+        if not ok:
+            self.timings["opt_lane"] = f"rejected:{why}"[:80]
+            self._opt_counts["rejected"] += 1
+            _opt.count_outcome("rejected")
+            return ffd_out
+        node_cap = problem.capacity[node_type]
+        _dropped, stale_rank = _refine_plan(problem, node_type, node_price, used, node_window,
+                                            placed, n_open, node_cap=node_cap)
+        # the device ranked the lane plan's launch options as it ranks the
+        # FFD plan's; rows the refine changed are re-ranked on the host
+        opt_specs, _ = _decode_nodes(
+            problem, node_type, node_price, used, n_open, placed,
+            problem.nodepool.name if problem.nodepool else "", node_window,
+            ranked_idx=got["ranked_idx"], ranked_n=got["ranked_n"], stale_rank=stale_rank,
+        )
+        t2 = time.perf_counter()
+        self.timings["opt_refine_ms"] = self.timings.get("opt_refine_ms", 0.0) + (t2 - t1) * 1e3
+        self.timings["opt_ms"] = self.timings.get("opt_ms", 0.0) + (t2 - t0) * 1e3
+        opt_cost = float(sum(s.estimated_price for s in opt_specs))
+        opt_placed = sum(len(s.pods) for s in opt_specs)
+        ffd_placed = sum(len(s.pods) for s in specs)
+        margin = max(1e-6, 1e-6 * ffd_cost)
+        if opt_cost < ffd_cost - margin and opt_placed >= ffd_placed:
+            self.timings["opt_lane"] = "adopted"
+            self.timings["opt_saving"] = round(ffd_cost - opt_cost, 6)
+            self._opt_counts["adopted"] += 1
+            _opt.count_outcome("adopted")
+            return opt_specs, binds, {g: int(c) for g, c in enumerate(unplaced_arr) if c > 0}
+        self.timings["opt_lane"] = "rejected"
+        self._opt_counts["rejected"] += 1
+        _opt.count_outcome("rejected")
+        return ffd_out
+
+    def solve(self, pods, nodepools, catalog, in_use=None, occupancy=None, type_allow=None,
+              reserved_allow=None, existing=None, nodeclass_by_pool=None,
+              revision=None) -> SolveResult:
+        _refuse_unsupported()
+        return _solve_multi_nodepool(self, pods, nodepools, catalog, in_use, occupancy,
+                                     type_allow, reserved_allow, existing,
+                                     nodeclass_by_pool=nodeclass_by_pool,
+                                     revision=revision)
+
+
+def host_solve_encoded(
+    problem: EncodedProblem, existing: Optional[Sequence[ExistingNode]] = None,
+) -> tuple[list[NodeSpec], list[tuple[Pod, str]], dict[int, int]]:
+    """The pure-host greedy solve: existing slack first (``_host_prefill``),
+    then the per-pod FFD oracle, decoded like a device plan."""
+    from .oracle import ffd_oracle
+
+    binds: list[tuple[Pod, str]] = []
+    if existing:
+        binds, problem = _host_prefill(problem, existing)
+    nodes, unplaced = ffd_oracle(problem)
+    G = len(problem.group_pods)
+    n_open = len(nodes)
+    N = max(n_open, 1)
+    Z = problem.group_window.shape[1]
+    placed = np.zeros((G, N), dtype=np.int32)
+    node_type = np.zeros(N, dtype=np.int32)
+    node_price = np.zeros(N, dtype=np.float32)
+    used = np.zeros((N, problem.capacity.shape[1]), dtype=np.float32)
+    node_window = np.zeros((N, Z, problem.group_window.shape[2]), dtype=bool)
+    for n, node in enumerate(nodes):
+        node_type[n] = node.type_index
+        node_price[n] = node.price
+        used[n] = node.used
+        node_window[n] = node.window
+        for g, c in node.group_counts.items():
+            placed[g, n] = c
+    specs, _ = _decode_nodes(
+        problem, node_type, node_price, used, n_open, placed,
+        problem.nodepool.name if problem.nodepool else "",
+        node_window,
+    )
+    return specs, binds, unplaced
+
+
+class HostSolver:
+    """The greedy per-pod FFD on the host (``scheduling/oracle.py``) behind
+    the Solver boundary: a measuring stick for ``cost_vs_oracle`` and
+    ``cost_vs_greedy``. No solve falls through to it. Several pools are
+    solved one after another, as the reference's host solver does."""
+
+    stages_pools = False
+
+    def __init__(self):
+        self.timings: dict = {}
+
+    def backend_label(self) -> str:
+        return "host"
+
+    def device_name(self) -> str:
+        return "cpu"
+
+    def solve_encoded(
+        self, problem: EncodedProblem, existing: Optional[Sequence[ExistingNode]] = None,
+    ) -> tuple[list[NodeSpec], list[tuple[Pod, str]], dict[int, int]]:
+        return host_solve_encoded(problem, existing)
 
     def solve(self, pods, nodepools, catalog, in_use=None, occupancy=None, type_allow=None,
               reserved_allow=None, existing=None, nodeclass_by_pool=None,
@@ -1042,7 +1379,7 @@ def _solve_multi_nodepool(
 
     def full_round(pods_list, include_preferences):
         pools_order = sorted(nodepools, key=lambda p: -p.weight)
-        if len(pools_order) <= 1:
+        if len(pools_order) <= 1 or not impl.stages_pools:
             rem = pods_list
             for pool in pools_order:
                 if not rem:
@@ -1108,4 +1445,13 @@ def _solve_multi_nodepool(
         "device": impl.device_name(),
         "timings": dict(impl.timings),
     }
+    # the FFD plan's gap to the LP lower bound, and the lane's cumulative
+    # outcomes, so a record never claims the lane ran (or did not) without
+    # the numbers to prove it
+    if "lp_gap" in impl.timings:
+        result.provenance["lp_gap"] = impl.timings["lp_gap"]
+    opt_counts = getattr(impl, "_opt_counts", None)
+    if opt_counts is not None and (opt_counts["adopted"] or opt_counts["rejected"]):
+        result.provenance["opt_adopted"] = opt_counts["adopted"]
+        result.provenance["opt_rejected"] = opt_counts["rejected"]
     return result

@@ -94,7 +94,7 @@ def test_plain_matches_xla_scan_and_pallas(name):
 
 def test_init_state_is_not_modified():
     case = CASES["pre_opened"]
-    init = state_from_reference(*case[3], n_open=case[4])
+    init = state_from_reference(*case[3], n_open=case[4], device="cpu")
     before = [t.clone() for t in init]
     targs, mpn = _torch_args(case[1])
     tffd.ffd_solve(*targs, max_per_node=mpn, max_nodes=case[2], init_state=init, n_pre=case[4])

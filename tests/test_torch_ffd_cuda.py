@@ -13,6 +13,11 @@ per-CTA slices, row exhaustion across a slice edge, R = 16, pre-opened rows
 beside hostname-capped groups), and three only the card runs: the kernel's
 global-memory branch (20,480 rows, 12,000 pre-opened), T = 2,048, and a
 group that requests nothing (its fit is 2^30 a row).
+The lane launch (``ffd_solve_lanes``: 8 lanes in one launch, each from no
+open rows, built by the optimizer lane's own ``first_round``, so the lanes
+differ in group order and price mask as its lanes do) is held to 8 plain
+solves on the one-CTA branch (256 rows), the 8-CTA shared-memory branch
+(3,300 and 4,096 rows) and the global-memory branch (20,480 rows).
 Integers must be equal exactly; ``node_price`` and ``used`` to rtol 1e-6 /
 atol 1e-3 (f32 accumulation order may differ).
 """
@@ -24,6 +29,7 @@ import torch
 from karpenter_provider_aws_tpu_torch.interop import state_from_reference
 from karpenter_provider_aws_tpu_torch.ops import ffd as tffd
 from karpenter_provider_aws_tpu_torch.ops import ffd_cases, ffd_cuda
+from karpenter_provider_aws_tpu_torch.scheduling import optimizer
 
 
 def _torch_args(args, device="cpu"):
@@ -66,3 +72,27 @@ def test_cuda_kernel_matches_plain():
             assert torch.equal(getattr(got, field), getattr(want, field)), (name, field)
         torch.testing.assert_close(got.node_price, want.node_price, rtol=1e-6, atol=1e-3)
         torch.testing.assert_close(got.used, want.used, rtol=1e-6, atol=1e-3)
+
+    # the lane launch: 8 lanes in ONE launch against 8 plain solves, on each
+    # branch of the kernel
+    lanes = 8
+    for name in ("random0", "exhaustion_boundary", "open_span", "global_branch"):
+        _name, args, N, _init, _n_pre, _Z, _C = {**CASES, **card}[name]
+        (requests, counts, compat, capacity, price, gw, tw), mpn = _torch_args(args, "cuda")
+        inp = dict(requests=requests, counts=counts, compat=compat, capacity=capacity,
+                   price=price, group_window=gw, type_window=tw, max_per_node=mpn)
+        *targs, mpn = optimizer.first_round(inp, lanes, seed=1)
+        launches = ffd_cuda.LAUNCHES
+        got = ffd_cuda.ffd_solve_lanes(*targs, mpn, max_nodes=N)
+        torch.cuda.synchronize()
+        assert ffd_cuda.LAUNCHES == launches + 1, name
+        for lane in range(lanes):
+            want = tffd.ffd_solve(*(a[lane] for a in targs), max_per_node=mpn[lane],
+                                  max_nodes=N)
+            assert int(want.placed.sum()) > 0, (name, lane)
+            for field in ("placed", "unplaced", "n_open", "node_type", "node_window"):
+                assert torch.equal(getattr(got, field)[lane], getattr(want, field)), \
+                    (name, lane, field)
+            torch.testing.assert_close(got.node_price[lane], want.node_price,
+                                       rtol=1e-6, atol=1e-3)
+            torch.testing.assert_close(got.used[lane], want.used, rtol=1e-6, atol=1e-3)

@@ -138,7 +138,7 @@ def test_default_device_is_cuda():
 
 
 @pytest.mark.parametrize("var,value", [
-    ("KARPENTER_TPU_OPTIMIZER", "1"),
+    ("KARPENTER_TPU_OPT_COLD_SKIP", "1"),
     ("KARPENTER_TPU_WHY", "1"),
     ("KARPENTER_TPU_PARTITION_SOLVE", "vmap"),
 ])
