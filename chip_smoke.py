@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 It drives the package's paths: the provisioning solve (the FFD kernel), with
-the market on in phase 11, the consolidation screen (the repack kernel) and
-the consolidation pass under churn (phase 10). Phases, each printing one
+the market on in phase 11, the consolidation screen (the repack kernel), the
+consolidation pass under churn (phase 10) and the provisioning control plane
+(phase 13). Phases, each printing one
 JSON line (any failure exits non-zero):
   1. probe   — device name, compute capability (must be 9.0), nvidia-smi;
   2. build   — compile every kernel under karpenter_provider_aws_tpu_torch/csrc
@@ -87,8 +88,9 @@ JSON line (any failure exits non-zero):
                against TorchSolver(device="cpu") with the same seed on the
                headline's first solve (1 + 3 launches, 1 + 24 lanes),
                config8 and frag seeds 0-11 (equal plans and outcomes), and
-               the count of the noise's float32 values that differ between
-               the CPU and the card over all 2^24 inputs;
+               the count of the noise's float32 Gumbel values that differ
+               between the CPU and the card over all 2^23 mantissas (must
+               be 0);
                ``optimizer_headline``, the headline's warm solve wall with
                the lane off and on and the reference's gate (opt p99 <= 12 x
                ffd p50); ``optimizer_lanes``, the lane launch
@@ -104,12 +106,33 @@ JSON line (any failure exits non-zero):
                adopted and rejected; solve wall with the lane off and on, 3
                warm-ups and 10 timed; the lane's device time from the
                profiler, its stages and its input bytes);
+  13. controlplane — the provisioning control plane through
+               ``testenv.new_environment()`` and its reconcile loop, the
+               lane on: ``controlplane_config7``, 2,000 live spot c/m nodes
+               (``config7_steady_state``'s cluster) and a burst of 500 pods
+               of 500m/1Gi, the provisioner's reconcile first (the host
+               binder runs before it in a manager pass and would take a
+               burst of 512 pods or fewer itself), then manager passes until
+               no pod is pending, 10 bursts on fresh copies: the reconcile's
+               p50 / p99 and its split (prepare, snapshot, solve = encode +
+               device + decode, audit, bind, launch, oracle), binds onto
+               live nodes and fresh ones, the lane outcome (skipped_existing),
+               the FFD launches and the rows offered; ``controlplane_config8``,
+               config8's 1,201 pods into an empty cluster, stepped until none
+               is pending: passes, walls, the lane outcome, claims launched
+               and their $/hr, FFD launches and lanes. The first config7
+               burst and the config8 run are repeated with
+               ``new_environment(device="cpu")`` and must match (launched
+               types, zones and capacity types; pods sharing a node; pending
+               pods; audit decisions); every pass must leave
+               ``manager.errors`` empty;
 then the kernels line, the card's name and power limit, and the result line.
 It needs the repository's package beside it and a CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -328,14 +351,15 @@ def repack_bytes_and_ops(t) -> dict:
             "walk_ms": walk_ops / F32_FLOPS * 1e3}
 
 
-def add_config4_node(cluster, catalog, i, it, zone):
+def add_config4_node(cluster, catalog, i, it, zone, name: str = ""):
     """One launched, registered, ready spot node of the default pool and its
-    claim, as ``_synth_cluster`` makes them; names come from ``i``."""
+    claim, as ``_synth_cluster`` makes them; names come from ``i`` unless
+    ``name`` names the claim."""
     from karpenter_provider_aws_tpu_torch.models import labels as lbl
     from karpenter_provider_aws_tpu_torch.models.nodeclaim import NodeClaim
     from karpenter_provider_aws_tpu_torch.state import Node
 
-    claim = NodeClaim(name=f"default-{i:x}", nodepool_name="default",
+    claim = NodeClaim(name=name or f"default-{i:x}", nodepool_name="default",
                       nodeclass_name="default", instance_type_options=[it.name],
                       zone_options=[zone], capacity_type_options=["spot"])
     claim.status.provider_id = f"cloud:///{zone}/i-bench{i}"
@@ -1152,15 +1176,17 @@ def optimizer_phase(dev, smi: str, pool, catalog, headline, pods8) -> dict:
         row["oracle_cost"], row["cost_vs_oracle"] = base, res.total_cost / base
         ratios.append(row["cost_vs_oracle"])
         solved[f"frag{seed}"] = row
-    # the noise's float32 values of every 24-bit integer, on the CPU and the
-    # card: the integer bits are the same by construction, the logs are each
-    # device's libm
-    bits = torch.arange(1 << 24, dtype=torch.int64)
-    differ = int((optimizer.gumbel_of_bits(bits).view(torch.int32)
-                  != optimizer.gumbel_of_bits(bits.to(dev)).cpu().view(torch.int32)).sum())
+    # the noise's float32 values of every 23-bit mantissa (the uniform reads
+    # only bits >> 9 of a draw), on the CPU and the card: the threefry bits
+    # are the same by construction, the logs are each device's libm
+    mant = torch.arange(1 << 23, dtype=torch.int64)
+    differ = int((optimizer.gumbel_of_mantissa(mant).view(torch.int32)
+                  != optimizer.gumbel_of_mantissa(mant.to(dev)).cpu().view(torch.int32)).sum())
+    if differ:
+        raise AssertionError(f"{differ} float32 Gumbel values differ between the CPU and the card")
     emit({"phase": "optimizer_solves", "solves": solved, "cpu_plan_equal": True,
           "headline_launches": launches, "headline_lanes": lanes_run,
-          "gumbel_float32_differ": differ, "gumbel_inputs": 1 << 24, "card": smi})
+          "gumbel_float32_differ": differ, "gumbel_inputs": 1 << 23, "card": smi})
 
     # 12b. the headline warm, the lane off then on (the reference's gate,
     # opt_p99 <= 12 x ffd_p50, on the port's main path)
@@ -1261,6 +1287,248 @@ def optimizer_phase(dev, smi: str, pool, catalog, headline, pods8) -> dict:
           "backend": solved["frag0"]["backend"], "card": smi})
     emit(prof_solve)
     return {"launches": launches, "lanes": lanes_run, "shapes": lane_shapes}
+
+
+#: the control-plane cells: config7 (benchmarks/solve_configs.py
+#: config7_steady_state) at full size, and config8's cold burst
+CONFIG7_NODES, CONFIG7_BURST, CONFIG7_BURSTS = 2000, 500, 10
+CONTROLPLANE_MAX_PASSES = 8
+PROVISIONING_SPLIT = ("prepare_ms", "snapshot_ms", "solve_ms", "audit_ms", "bind_ms",
+                      "launch_ms", "oracle_ms", "wall_ms")
+SOLVE_SPLIT = ("encode_ms", "device_ms", "decode_ms")
+
+
+def cmr_pool():
+    from karpenter_provider_aws_tpu_torch.models import Disruption, NodePool, Operator, Requirement
+    from karpenter_provider_aws_tpu_torch.models import labels as lbl
+
+    return NodePool(name="default",
+                    requirements=[Requirement(lbl.INSTANCE_CATEGORY, Operator.IN, ("c", "m", "r"))],
+                    disruption=Disruption(consolidate_after_s=None))
+
+
+def config7_env(device=None):
+    """``config7_steady_state``'s live cluster in a fresh environment: 2,000
+    spot c/m nodes of 4-16 vCPUs (RandomState(1), ``_synth_cluster``), each
+    with 1-6 bound pods of 250m/512Mi, in the default c/m/r pool."""
+    from karpenter_provider_aws_tpu_torch.models.pod import make_pods
+    from karpenter_provider_aws_tpu_torch.testenv import new_environment
+
+    env = new_environment(device=device)
+    env.apply_defaults(cmr_pool())
+    rng = np.random.RandomState(1)
+    types = config4_types(env.catalog)
+    for i in range(CONFIG7_NODES):
+        it = types[rng.randint(len(types))]
+        zone = env.catalog.zones[rng.randint(len(env.catalog.zones))]
+        # "live-" names: the claims the provisioner launches are "default-"
+        node = add_config4_node(env.cluster, env.catalog, i, it, zone, name=f"live-{i:x}")
+        for p in make_pods(rng.randint(1, 7), f"p{i}", {"cpu": "250m", "memory": "512Mi"}):
+            env.cluster.apply(p)
+            env.cluster.bind_pod(p.uid, node.name)
+    return env
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """Milliseconds the Python garbage collector ran inside the block, as
+    a one-element list filled on exit."""
+    import gc
+
+    out, start = [0.0], {}
+
+    def callback(phase, _info):
+        if phase == "start":
+            start["t"] = time.perf_counter()
+        elif "t" in start:
+            out[0] += (time.perf_counter() - start.pop("t")) * 1e3
+
+    gc.callbacks.append(callback)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(callback)
+
+
+def drive(env) -> list:
+    """Manager passes until no pod is pending; every pass must leave
+    ``manager.errors`` empty. Returns each pass's wall (ms), provisioning
+    split (empty when the provisioner had nothing to solve) and lane
+    outcome."""
+    passes = []
+    for _ in range(CONTROLPLANE_MAX_PASSES):
+        if not env.cluster.pending_pods():
+            return passes
+        env.provisioning.timings = {}
+        t0 = time.perf_counter()
+        env.step()
+        if env.manager.errors:
+            raise AssertionError(f"reconcile errors: {env.manager.errors}")
+        solved = dict(env.provisioning.timings)
+        passes.append({"pass_ms": (time.perf_counter() - t0) * 1e3, "provisioning": solved,
+                       "lane": env.solver.timings.get("opt_lane") if solved else None})
+    if env.cluster.pending_pods():
+        raise AssertionError(f"{len(env.cluster.pending_pods())} pods still pending after "
+                             f"{CONTROLPLANE_MAX_PASSES} passes")
+    return passes
+
+
+def observe_env(env, live: set) -> dict:
+    """What the card's and the CPU's runs are held equal on: the launched
+    (type, zone, capacity type) multiset, which pods share a node, the
+    pending pods, and the audit decisions with claim names replaced by
+    their order of creation; plus the binds onto live nodes and onto fresh
+    ones."""
+    import re
+
+    names = {c: f"claim{i}" for i, c in enumerate(env.cluster.nodeclaims)}
+    pattern = re.compile("|".join(re.escape(c) for c in sorted(names, key=len, reverse=True)))
+    by_node: dict = {}
+    for pod in env.cluster.pods.values():
+        if pod.node_name:
+            by_node.setdefault(pod.node_name, []).append(pod.name)
+    burst = [p for p in env.cluster.pods.values() if p.name.startswith("burst")]
+    return {
+        "launched": sorted((i.instance_type, i.zone, i.capacity_type)
+                           for i in env.cloud.instances.values()),
+        "pods_by_node": sorted(sorted(v) for v in by_node.values()),
+        "pending": sorted(p.name for p in env.cluster.pending_pods()),
+        "decisions": [(r.kind, r.subject_kind, pattern.sub(lambda m: names[m.group(0)], r.decision))
+                      for r in env.obs.audit.tail(1_000_000)],
+        "bound_live": sum(1 for p in burst if p.node_name in live),
+        "bound_fresh": sum(1 for p in burst if p.node_name and p.node_name not in live),
+    }
+
+
+def launched_cost(env) -> float:
+    """$/hr of the instances the fake cloud launched, at the catalog's list
+    prices (spot in the instance's zone, or on-demand): what the fleet
+    requests bought, beside the plan's own estimate."""
+    total = 0.0
+    for inst in env.cloud.instances.values():
+        it = env.catalog.get(inst.instance_type)
+        total += float(env.catalog.pricing.spot_price(it, inst.zone) if inst.capacity_type == "spot"
+                       else env.catalog.pricing.on_demand_price(it))
+    return total
+
+
+def same_run(card: dict, cpu: dict, what: str) -> None:
+    for key in ("launched", "pods_by_node", "pending", "decisions"):
+        if card[key] != cpu[key]:
+            raise AssertionError(f"{what}: {key} differ between the card and the CPU")
+
+
+def controlplane_phase(smi: str) -> dict:
+    """Phase 13: the provisioning control plane on the card, through
+    ``new_environment()`` and its reconcile loop. config7 at full size:
+    2,000 live nodes, a burst of 500 pods of 500m/1Gi; the provisioner
+    reconciles first (in a manager pass the host binder, which runs before
+    it, takes a burst of 512 pods or fewer itself), then the manager steps
+    until no pod is pending; 10 bursts on fresh copies. config8's cold
+    burst: 1,201 pods into an empty cluster, stepped until none is pending.
+    The first config7 burst and the config8 run are repeated on
+    ``new_environment(device="cpu")``, launches serialized on both sides,
+    and must match. Returns the FFD kernel's launches on each path."""
+    from karpenter_provider_aws_tpu_torch.models import labels as lbl
+    from karpenter_provider_aws_tpu_torch.models.pod import make_pods
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda, solve_cases
+    from karpenter_provider_aws_tpu_torch.testenv import new_environment
+
+    os.environ.pop("KARPENTER_TPU_OPTIMIZER", None)  # the default: the lane on
+
+    def config7_burst(device=None) -> tuple:
+        env = config7_env(device)
+        live = set(env.cluster.nodes)
+        for p in make_pods(CONFIG7_BURST, "burst", {"cpu": "500m", "memory": "1Gi"}):
+            env.cluster.apply(p)
+        t0 = time.perf_counter()
+        with gc_pauses() as paused:
+            env.provisioning.reconcile()
+        first = dict(env.provisioning.timings, gc_ms=paused[0])
+        solve = {k: env.solver.timings.get(k) for k in SOLVE_SPLIT + ("n_rows", "opt_lane")}
+        walls = [first["wall_ms"]] + [p["provisioning"]["wall_ms"] for p in drive(env)
+                                      if p["provisioning"]]
+        total_ms = (time.perf_counter() - t0) * 1e3
+        out = observe_env(env, live)
+        env.close()
+        return out, {"provisioning": first, "solve": solve, "passes_walls_ms": walls,
+                     "total_ms": total_ms}
+
+    # config7: the first burst launches serialized, for the CPU equality
+    os.environ["KARPENTER_TPU_SERIAL_LAUNCH"] = "1"
+    ffd_cuda.LAUNCHES = ffd_cuda.LANES = 0
+    obs0, run0 = config7_burst()
+    launches7 = ffd_cuda.LAUNCHES
+    obs_cpu, _ = config7_burst("cpu")
+    same_run(obs0, obs_cpu, "config7")
+    os.environ.pop("KARPENTER_TPU_SERIAL_LAUNCH")
+    runs = [run0]
+    ffd_cuda.LAUNCHES = 0
+    for _ in range(CONFIG7_BURSTS - 1):
+        runs.append(config7_burst()[1])
+    launches7 += ffd_cuda.LAUNCHES
+    if launches7 < CONFIG7_BURSTS:
+        raise AssertionError(f"config7 launched the FFD kernel {launches7} times "
+                             f"in {CONFIG7_BURSTS} bursts")
+    lanes = {r["solve"]["opt_lane"] for r in runs}
+    if lanes != {"skipped_existing"}:
+        raise AssertionError(f"config7's lane outcomes {lanes}, expected skipped_existing")
+    walls = [r["provisioning"]["wall_ms"] for r in runs]
+    emit({"phase": "controlplane_config7", "nodes": CONFIG7_NODES, "burst": CONFIG7_BURST,
+          "bursts": CONFIG7_BURSTS, "reconcile_p50_ms": _pct(walls, 50),
+          "reconcile_p99_ms": _pct(walls, 99), "reconcile_walls_ms": walls,
+          "reconcile_gc_ms": [r["provisioning"]["gc_ms"] for r in runs],
+          "split_median_ms": {
+              **{k: statistics.median(r["provisioning"][k] for r in runs)
+                 for k in PROVISIONING_SPLIT},
+              **{k: statistics.median(r["solve"][k] for r in runs) for k in SOLVE_SPLIT}},
+          "n_pre": run0["provisioning"]["n_pre"], "rows": run0["solve"]["n_rows"],
+          "lane": sorted(lanes), "ffd_launches": launches7,
+          "bound_live": obs0["bound_live"], "bound_fresh": obs0["bound_fresh"],
+          "launched_claims": len(obs0["launched"]),
+          "passes_walls_ms": run0["passes_walls_ms"], "total_ms_first": run0["total_ms"],
+          "manager_errors": [], "cpu_run_equal": True, "card": smi})
+
+    # config8's cold burst: 1,201 pods into an empty cluster
+    pkg = SimpleNamespace(lbl=lbl, make_pods=make_pods)
+
+    def config8_burst(device=None) -> tuple:
+        env = new_environment(device=device)
+        env.apply_defaults(cmr_pool())
+        pods = solve_cases.config8_pods(pkg)
+        for p in pods:
+            env.cluster.apply(p)
+        t0 = time.perf_counter()
+        passes = drive(env)
+        total_ms = (time.perf_counter() - t0) * 1e3
+        out = observe_env(env, set())
+        cost = launched_cost(env)
+        env.close()
+        return out, {"pods": len(pods), "passes": passes, "total_ms": total_ms, "cost": cost}
+
+    os.environ["KARPENTER_TPU_SERIAL_LAUNCH"] = "1"
+    ffd_cuda.LAUNCHES = ffd_cuda.LANES = 0
+    obs8, run8 = config8_burst()
+    launches8, lanes8 = ffd_cuda.LAUNCHES, ffd_cuda.LANES
+    obs8_cpu, run8_cpu = config8_burst("cpu")
+    same_run(obs8, obs8_cpu, "config8")
+    os.environ.pop("KARPENTER_TPU_SERIAL_LAUNCH")
+    if launches8 < 1:
+        raise AssertionError("config8's cold burst never launched the FFD kernel")
+    emit({"phase": "controlplane_config8", "pods": run8["pods"], "passes": len(run8["passes"]),
+          "total_ms": run8["total_ms"],
+          "provisioning_walls_ms": [p["provisioning"].get("wall_ms") for p in run8["passes"]],
+          "pass_walls_ms": [p["pass_ms"] for p in run8["passes"]],
+          "splits_ms": [{k: p["provisioning"].get(k) for k in PROVISIONING_SPLIT}
+                        for p in run8["passes"] if p["provisioning"]],
+          "lanes": [p["lane"] for p in run8["passes"]],
+          "launched_claims": len(obs8["launched"]),
+          "plan_cost_per_hr": sum(p["provisioning"].get("cost", 0.0) for p in run8["passes"]),
+          "launched_cost_per_hr": run8["cost"],
+          "ffd_launches": launches8, "ffd_lanes": lanes8, "manager_errors": [],
+          "cpu_run_equal": True, "cpu_total_ms": run8_cpu["total_ms"], "card": smi})
+    return {"config7": launches7, "config8": launches8, "config8_lanes": lanes8}
+
 
 
 def main() -> int:
@@ -1420,6 +1688,7 @@ def main() -> int:
                                        "churn": churn["launches"]}
     market_launches = market_phase(smi)
     lanes = optimizer_phase(dev, smi, pool, catalog, pods, pods8)
+    cp = controlplane_phase(smi)
 
     main = timing[f"headline_{N_main}"]  # the FFD kernel's line: the main path's shapes
     emit({"kernels": [{
@@ -1429,8 +1698,11 @@ def main() -> int:
         "tpu_kernel": "ops/ffd_pallas.py::_kernel",
         "launches": launches, "parity": "exact", "max_abs_err": max_err,
         "launches_by_path": {"headline": launches, "market": market_launches,
-                             "headline_lane_on": lanes["launches"]},
-        "lanes_by_path": {"headline_lane_on": lanes["lanes"]},
+                             "headline_lane_on": lanes["launches"],
+                             "controlplane_config7": cp["config7"],
+                             "controlplane_config8": cp["config8"]},
+        "lanes_by_path": {"headline_lane_on": lanes["lanes"],
+                          "controlplane_config8": cp["config8_lanes"]},
         "lane_launch": {k: {f: v[f] for f in ("N", "lanes", "lanes_device_ms",
                                                "single_lane_device_ms", "bound_ms",
                                                "clusters_at_once")}

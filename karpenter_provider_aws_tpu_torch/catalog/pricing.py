@@ -41,6 +41,11 @@ def _jitter(seed: str, lo: float, hi: float) -> float:
     return lo + (hi - lo) * (h / 0xFFFFFFFF)
 
 
+#: live-refresh staleness TTL: the reference's pricing controller refreshes
+#: hourly; past this age a once-live source is considered stale and
+#: observe_staleness publishes a PricingStale Warning (docs/observability.md)
+PRICING_STALE_TTL_S = 3900.0
+
 # Static seed-price tables (codegen output, copied into this package).
 from .zz_generated_pricing import (  # noqa: E402
     INITIAL_ON_DEMAND_PRICES as _STATIC_OD,
@@ -183,6 +188,41 @@ class PricingProvider:
         with self._lock:
             return self._seq
 
+    # -- staleness observability -----------------------------------------
+    def observe_staleness(self, ttl_s: float = PRICING_STALE_TTL_S,
+                          recorder=None) -> dict[str, float]:
+        """Publish ``karpenter_pricing_age_seconds{source}`` for every
+        source a live backend has refreshed, and a ``PricingStale``
+        Warning event once an age crosses ``ttl_s``. A source that has
+        NEVER refreshed is not reported: a static-catalog process runs on
+        compiled-in prices by design and must not page. Isolated-VPC mode
+        skips live refresh entirely (pricing.go:164-170 parity), so it
+        never reports either. Returns ``{source: age_seconds}``."""
+        with self._lock:
+            if self.isolated_vpc:
+                return {}
+            now = self._clock.now()
+            ages = {src: max(0.0, now - at)
+                    for src, at in self._last_refresh.items()}
+        from ..metrics import PRICING_AGE
+
+        for src, age in ages.items():
+            PRICING_AGE.set(age, source=src)
+            if age > ttl_s:
+                if recorder is None:
+                    from ..events import default_recorder
+
+                    recorder = default_recorder()
+                recorder.publish(
+                    kind="PricingProvider", name=src, reason="PricingStale",
+                    message=(
+                        f"{src} pricing last refreshed {age:.0f}s ago "
+                        f"(TTL {ttl_s:.0f}s); cost decisions are running "
+                        "on stale market data"
+                    ),
+                    type="Warning",
+                )
+        return ages
 
 class MarketModel:
     """Seeded, clock-driven market: price-volatility walks and per-offering

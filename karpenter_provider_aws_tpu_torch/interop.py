@@ -103,3 +103,87 @@ def cluster_tensors_from_reference(fields: Mapping[str, object]) -> ClusterTenso
         for cons in fields["zone_constraints"]
     ]
     return ClusterTensors(group_pods=[], zone_constraints=zone_constraints, **arrays, **lists)
+
+
+def cluster_from_reference(snapshot: Mapping[str, Sequence[Mapping]], cluster=None):
+    """This package's ``state.Cluster`` in the state of a JAX package store,
+    from plain Python and numpy data (the caller reads it off the reference
+    ``Cluster``), applied in the order node pools, node classes, claims,
+    nodes, pods, then each bound pod bound. ``cluster`` (a fresh store, for
+    example an environment's) is filled and returned; by default a new one.
+
+    ``snapshot`` holds lists of dicts:
+
+    - ``nodepools``: ``name``, ``nodeclass_name``, ``requirements`` as
+      (key, operator value, values) triples, ``labels``, ``annotations``,
+      ``taints`` as (key, value, effect), ``weight``;
+    - ``nodeclasses``: ``name``, ``role``;
+    - ``claims``: ``name``, ``nodepool_name``, ``nodeclass_name``,
+      ``labels``, ``annotations``, the ``instance_type_options``,
+      ``zone_options`` and ``capacity_type_options``, ``provider_id``,
+      ``node_name``, ``capacity`` and ``allocatable`` (resource vectors),
+      ``conditions`` (the names of the true conditions);
+    - ``nodes``: ``name``, ``provider_id``, ``nodepool_name``,
+      ``nodeclaim_name``, ``labels``, ``capacity``, ``allocatable``,
+      ``ready``, ``cordoned``;
+    - ``pods``: ``name``, ``requests`` (a resource vector), ``labels``,
+      ``node_selector``, ``node_name`` (empty when pending).
+    """
+    from .models.nodeclaim import NodeClaim
+    from .models.nodeclass import NodeClass
+    from .models.nodepool import NodePool, Taint
+    from .models.pod import Pod
+    from .models.requirements import Operator, Requirement
+    from .models.resources import ResourceVector
+    from .state.cluster import Cluster, Node
+
+    cluster = Cluster() if cluster is None else cluster
+
+    def vec(a):
+        return ResourceVector(np.array(a, dtype=np.float32, copy=True))
+
+    for p in snapshot.get("nodepools", ()):
+        cluster.apply(NodePool(
+            name=p["name"], nodeclass_name=p.get("nodeclass_name", "default"),
+            requirements=[Requirement(k, Operator(op), tuple(v))
+                          for k, op, v in p.get("requirements", ())],
+            labels=dict(p.get("labels", {})), annotations=dict(p.get("annotations", {})),
+            taints=[Taint(k, v, e) for k, v, e in p.get("taints", ())],
+            weight=int(p.get("weight", 0)),
+        ))
+    for nc in snapshot.get("nodeclasses", ()):
+        cluster.apply(NodeClass(name=nc["name"], role=nc.get("role", "")))
+    for c in snapshot.get("claims", ()):
+        claim = NodeClaim(
+            name=c["name"], nodepool_name=c["nodepool_name"],
+            nodeclass_name=c.get("nodeclass_name", "default"),
+            labels=dict(c.get("labels", {})), annotations=dict(c.get("annotations", {})),
+            instance_type_options=list(c.get("instance_type_options", ())),
+            zone_options=list(c.get("zone_options", ())),
+            capacity_type_options=list(c.get("capacity_type_options", ())),
+        )
+        claim.status.provider_id = c.get("provider_id", "")
+        claim.status.node_name = c.get("node_name", "")
+        claim.status.capacity = vec(c["capacity"])
+        claim.status.allocatable = vec(c["allocatable"])
+        for cond in c.get("conditions", ()):
+            claim.status.set_condition(cond, True)
+        cluster.apply(claim)
+    for n in snapshot.get("nodes", ()):
+        cluster.apply(Node(
+            name=n["name"], provider_id=n.get("provider_id", ""),
+            nodepool_name=n.get("nodepool_name", ""),
+            nodeclaim_name=n.get("nodeclaim_name", ""), labels=dict(n.get("labels", {})),
+            capacity=vec(n["capacity"]), allocatable=vec(n["allocatable"]),
+            ready=bool(n.get("ready", False)), cordoned=bool(n.get("cordoned", False)),
+        ))
+    bound = []
+    for p in snapshot.get("pods", ()):
+        pod = Pod(name=p["name"], requests=vec(p["requests"]), labels=dict(p.get("labels", {})),
+                  node_selector=dict(p.get("node_selector", {})))
+        cluster.apply(pod)
+        if p.get("node_name"):
+            bound.append((pod.uid, p["node_name"]))
+    for uid, node_name in bound:
+        cluster.bind_pod(uid, node_name)
+    return cluster

@@ -56,9 +56,26 @@ MAX_CHAIN_DEPTH = 16
 MAX_HOLDERS = 32
 
 #: acquires by outcome, patched rows, and bytes moved host-to-device by
-#: uploads and patches, since the last ``reset_counts``
+#: uploads and patches, since the last ``reset_counts``; each also counts on
+#: the reference's metric series (``_count``), which never reset
 COUNTS: dict = {"hit": 0, "patch": 0, "upload": 0, "fallback": 0,
                 "patch_rows": 0, "upload_bytes": 0, "patch_bytes": 0}
+
+
+def _count(key: str, n: int = 1) -> None:
+    """Add ``n`` to ``COUNTS[key]`` and to its series:
+    ``karpenter_device_state_total{path="screen", outcome}``,
+    ``karpenter_device_state_patch_rows_total`` or
+    ``karpenter_device_state_bytes_total{kind}``."""
+    from ..metrics import DEVICE_STATE, DEVICE_STATE_BYTES, DEVICE_STATE_PATCH_ROWS
+
+    COUNTS[key] += n
+    if key == "patch_rows":
+        DEVICE_STATE_PATCH_ROWS.inc(n)
+    elif key.endswith("_bytes"):
+        DEVICE_STATE_BYTES.inc(n, kind=key[:-len("_bytes")])
+    else:
+        DEVICE_STATE.inc(n, path="screen", outcome=key)
 
 
 def reset_counts() -> None:
@@ -188,13 +205,13 @@ def acquire_screen_tensors(ct, device):
     only when the layer is off or ``ct`` has no encoder chain. Any error in
     the upload or the patch raises."""
     if not enabled():
-        COUNTS["fallback"] += 1
+        _count("fallback")
         return None, "fallback"
     chain = ct.__dict__.get("_device_chain")
     if chain is None:
         # full-encode tensors (no persistent encoder): nothing to key a
         # persistent mirror on — the screen uploads this ct's inputs
-        COUNTS["fallback"] += 1
+        _count("fallback")
         return None, "fallback"
     holder = _holder_for(chain, torch.device(device))
     with holder.lock:
@@ -210,7 +227,7 @@ def _acquire_locked(holder: DeviceClusterTensors, ct):
     bufs = holder.arrays()
 
     if bufs is not None and holder.base_ct is ct:
-        COUNTS["hit"] += 1
+        _count("hit")
         return bufs, "resident"
 
     if (
@@ -226,12 +243,12 @@ def _acquire_locked(holder: DeviceClusterTensors, ct):
         rows = _collect_patch_positions(ct, holder.base_ct)
         if rows is not None:
             _apply_patch(holder, ct, rows)
-            COUNTS["patch"] += 1
-            COUNTS["patch_rows"] += len(rows)
+            _count("patch")
+            _count("patch_rows", len(rows))
             return holder.arrays(), "resident"
 
     _upload(holder, ct, N, G, W)
-    COUNTS["upload"] += 1
+    _count("upload")
     return holder.arrays(), "upload"
 
 
@@ -287,8 +304,8 @@ def _upload(holder: DeviceClusterTensors, ct, N: int, G: int, W: int) -> None:
     holder.NB, holder.GB, holder.S = NB, GB, S
     holder.n_live, holder.G = N, G
     holder.base_ct = ct
-    COUNTS["upload_bytes"] += sum(h[k].nbytes for k in (
-        "free", "group_ids", "group_counts", "requests", "cap"))
+    _count("upload_bytes", sum(h[k].nbytes for k in (
+        "free", "group_ids", "group_counts", "requests", "cap")))
 
 
 def _apply_patch(holder: DeviceClusterTensors, ct, rows: np.ndarray) -> None:
@@ -318,8 +335,8 @@ def _apply_patch(holder: DeviceClusterTensors, ct, rows: np.ndarray) -> None:
     holder.gcounts.index_copy_(0, idx, _to(dev, gcounts_v))
     holder.cap.index_copy_(1, idx, _to(dev, cap_v))
     holder.base_ct = ct
-    COUNTS["patch_bytes"] += (idx_h.nbytes + free_v.nbytes + gids_v.nbytes
-                              + gcounts_v.nbytes + cap_v.nbytes)
+    _count("patch_bytes", idx_h.nbytes + free_v.nbytes + gids_v.nbytes
+           + gcounts_v.nbytes + cap_v.nbytes)
 
 
 # -- exactness witness -------------------------------------------------------
@@ -392,7 +409,7 @@ def note_hit(ct, device) -> bool:
     h = mirror_for(ct, device)
     if h is None or h.base_ct is not ct or h.arrays() is None:
         return False
-    COUNTS["hit"] += 1
+    _count("hit")
     return True
 
 

@@ -56,8 +56,10 @@ def _refresh_every() -> int:
 
 
 #: passes by outcome since the last ``reset_encode_counts`` (``patch_rows``:
-#: rows the patches rewrote); the counterpart of the reference's
-#: encode-cache metrics
+#: rows the patches rewrote); every count also goes to the reference's
+#: metric series (``karpenter_encode_cache_total{path="cluster"}`` with the
+#: cause of a full build, ``karpenter_encode_patch_rows_total``), which
+#: never reset
 ENCODE_COUNTS: dict = {"hit": 0, "patch": 0, "full": 0, "patch_rows": 0}
 #: the last pass: ``mode`` (hit / patch / full), ``cause`` of a full build,
 #: ``dirty`` rows of a patch
@@ -71,8 +73,16 @@ def reset_encode_counts() -> None:
 
 
 def _count(mode: str, cause: str = "", dirty: int = 0) -> None:
+    from ..metrics import ENCODE_CACHE, ENCODE_PATCH_ROWS
+
     ENCODE_COUNTS[mode] += 1
     ENCODE_COUNTS["patch_rows"] += dirty
+    if mode == "full" and cause:
+        ENCODE_CACHE.inc(path="cluster", outcome=mode, cause=cause)
+    else:
+        ENCODE_CACHE.inc(path="cluster", outcome=mode)
+    if dirty:
+        ENCODE_PATCH_ROWS.inc(dirty)
     LAST_ENCODE.clear()
     LAST_ENCODE.update(mode=mode, cause=cause, dirty=dirty)
 

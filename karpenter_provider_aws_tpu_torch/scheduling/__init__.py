@@ -1,3 +1,12 @@
-"""The Solver boundary: ``TorchSolver``, ``HostSolver`` and the plan types they return."""
+"""The Solver boundary: ``TorchSolver``, ``HostSolver``, the ``Solver``
+protocol, the plan types they return and ``snapshot_existing_capacity``."""
 
-from .solver import ExistingNode, HostSolver, NodeSpec, SolveResult, TorchSolver  # noqa: F401
+from .solver import (  # noqa: F401
+    ExistingNode,
+    HostSolver,
+    NodeSpec,
+    SolveResult,
+    Solver,
+    TorchSolver,
+    snapshot_existing_capacity,
+)

@@ -24,16 +24,21 @@ eligible solve runs, beside its FFD plan, a device program of three parts:
     ``_refine_plan``, prices strictly cheaper. Otherwise the FFD plan
     serves, byte for byte.
 
-The reference draws its noise with ``jax.random``, which torch cannot
-reproduce, and a ``torch.Generator`` draws other numbers on the CPU than on
-a CUDA device. So the noise here is a counter-based hash of (seed, round,
-lane, element) in int64 torch ops, which give the same integer bits on
-every device: 24 bits make ``u = (k + 0.5) * 2^-24``, and ``-log(-log(u))``
-is formed in float64 and rounded to float32. The logs are each device's
-libm, so the float32 draws agree between the CPU and the card up to that
-libm's rounding; ``chip_smoke.py`` counts the draws that differ over all
-2^24 inputs. Lane 0 of round 0 draws nothing that matters (its
-temperatures are 0), so it computes what the reference's lane 0 computes.
+The noise is the reference's own ``jax.random`` stream, rebuilt in int64
+torch ops (which give the same integer bits on every device): threefry2x32
+keyed as the reference's ``_program`` keys it (``PRNGKey(seed)``,
+``fold_in(base, round)``, ``split(k, lanes)``, then ``split(lane_key)``
+into a pick key and an order key), the 32-bit bits of
+``jax_threefry_partitionable`` (the two output words XORed), and
+``jax.random.uniform``'s float32 mantissa trick over ``[tiny, 1)``. Only
+the Gumbel transform ``-log(-log(u))`` differs: it is formed in float64 and
+rounded to float32, so that the CPU and the card agree (``chip_smoke.py``
+counts the values that differ over all 2^23 mantissa inputs); jax forms it
+in float32 through XLA's ``log``, and the two differ by at most 9.5e-7
+(``tests/test_torch_optimizer.py::test_lane_noise_equals_reference``).
+Lane 0 of round 0 draws nothing that matters (its temperatures are 0). The
+draws depend only on (seed, lanes, G, T), so a solver keeps its newest
+shapes' draws (``LaneNoise``) and a later solve of a shape bucket reuses them.
 
 There is no breaker and no fallback: a lane that raises raises out of the
 solve. Only the contract's algorithmic outcomes leave the FFD plan in place.
@@ -63,7 +68,8 @@ _COOL = 0.7
 _RECENTER = 4.0
 
 #: lane outcomes since the last reset (adopted, rejected, skipped_large,
-#: skipped_existing, skipped_tight, disabled)
+#: skipped_existing, skipped_tight, disabled); each also counts on the
+#: reference's ``karpenter_optimizer_lane_total{outcome}``, which never resets
 OUTCOMES: dict = {}
 
 
@@ -107,7 +113,10 @@ def refuse_cold_skip() -> None:
 
 
 def count_outcome(outcome: str, n: int = 1) -> None:
+    from ..metrics import OPTIMIZER_LANE
+
     OUTCOMES[outcome] = OUTCOMES.get(outcome, 0) + n
+    OPTIMIZER_LANE.inc(n, outcome=outcome)
 
 
 def gap_key(problem, hist_key) -> tuple:
@@ -141,43 +150,91 @@ def lp_bound_for(problem) -> float:
 # ---------------------------------------------------------------------------
 
 _M32 = 0xFFFFFFFF
+#: threefry2x32's rotation schedule and key-schedule parity constant
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+#: float32's smallest normal value, ``jax.random.gumbel``'s uniform floor
+_TINY = float(np.finfo(np.float32).tiny)
 
 
-def _mul32(x, c: int):
-    """``x * c mod 2^32`` for values in [0, 2^32), exact in int64 without
-    overflow (16-bit halves): works on Python ints and int64 tensors."""
-    return ((((x >> 16) * c) & 0xFFFF) << 16) + (x & 0xFFFF) * c & _M32
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 block (20 rounds) of ``jax._src.prng``, on Python
+    ints or int64 tensors holding values in [0, 2^32); keys and counters
+    broadcast against each other. Returns the two output words."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    a, b = (x1 + ks[0]) & _M32, (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            a = (a + b) & _M32
+            b = (((b << r) & _M32) | (b >> (32 - r))) ^ a
+        a = (a + ks[(i + 1) % 3]) & _M32
+        b = (b + ks[(i + 2) % 3] + i + 1) & _M32
+    return a, b
 
 
-def _mix32(x):
-    """A 32-bit bijective integer mixer (``lowbias32``), on Python ints or
-    int64 tensors holding values in [0, 2^32)."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
+def prng_key(seed: int) -> tuple:
+    """``jax.random.PRNGKey`` of a uint32 seed: the words (0, seed)."""
+    return (0, int(seed) & _M32)
 
 
-def _stream_key(seed: int, rnd: int, lane: int, stream: int) -> int:
-    return _mix32(_mix32(_mix32(_mix32(seed & _M32) ^ rnd) ^ lane) ^ stream)
+def fold_in(key: tuple, data: int) -> tuple:
+    """``jax.random.fold_in``: threefry of the counters (0, data), split
+    into halves as ``threefry_2x32`` splits a two-element count."""
+    return threefry2x32(key[0], key[1], 0, int(data) & _M32)
+
+
+def split(key: tuple, num: int = 2) -> list:
+    """``jax.random.split`` with ``jax_threefry_partitionable``: key ``i``
+    is both output words of threefry on the counters (0, i)."""
+    return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
+
+
+def lane_keys(seed: int, rnd: int, lanes: int) -> tuple:
+    """Round ``rnd``'s per-lane (pick, order) keys, as the reference's
+    ``_program`` derives them: ``split(fold_in(PRNGKey(seed), rnd),
+    lanes)``, then ``split`` of each lane's key."""
+    pairs = [split(k) for k in split(fold_in(prng_key(seed), rnd), lanes)]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+def random_bits(keys: list, n: int, device) -> torch.Tensor:
+    """[len(keys), n] 32-bit draws (int64 in [0, 2^32)) of each key over
+    the flat element index, as ``jax.random.bits`` with
+    ``jax_threefry_partitionable``: the counters (0, i), the two output
+    words XORed."""
+    k = torch.tensor(keys, dtype=torch.int64, device=device)               # [K, 2]
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    a, b = threefry2x32(k[:, :1], k[:, 1:], 0, idx[None])
+    return a ^ b
+
+
+def gumbel_of_mantissa(m: torch.Tensor) -> torch.Tensor:
+    """The float32 Gumbel value of 23-bit mantissas (int64 in [0, 2^23)):
+    ``jax.random.uniform``'s ``u = max(tiny, f * (1 - tiny) + tiny)`` of
+    ``f = bitcast(m | 0x3F800000) - 1`` in float32, then ``-log(-log(u))``
+    in float64, rounded to float32."""
+    f = (m | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    u = torch.clamp(f * (1.0 - _TINY) + _TINY, min=_TINY)
+    return (-torch.log(-torch.log(u.double()))).to(torch.float32)
 
 
 def gumbel_of_bits(bits: torch.Tensor) -> torch.Tensor:
-    """The float32 Gumbel value of 24-bit integers (int64 in [0, 2^24)):
-    ``u = (k + 0.5) * 2^-24``, strictly inside (0, 1), then ``-log(-log(u))``
-    in float64."""
-    u = (bits.to(torch.float64) + 0.5) * 2.0 ** -24
-    return (-torch.log(-torch.log(u))).to(torch.float32)
+    """The float32 Gumbel value of 32-bit draws: their top 23 bits."""
+    return gumbel_of_mantissa(bits >> 9)
 
 
-def gumbel(seed: int, rounds: int, lanes: int, stream: int, n: int, device) -> torch.Tensor:
-    """[rounds, lanes, n] float32 Gumbel draws of (seed, round, lane,
-    stream, element): the same integer bits on every device."""
-    keys = torch.tensor([[_stream_key(seed, r, lane, stream) for lane in range(lanes)]
-                         for r in range(rounds)], dtype=torch.int64, device=device)
-    idx = _mix32(torch.arange(n, dtype=torch.int64, device=device))
-    return gumbel_of_bits(_mix32(idx ^ keys[..., None]) >> 8)          # 24 bits
+def ladders(lanes: int, groups: int, device) -> torch.Tensor:
+    """The temperature ladders [2, rounds, lanes]: type noise ``[0,
+    geomspace(0.2, 3, L - 1)]`` and, on odd lanes only, order noise
+    ``geomspace(2, max(G / 2, 4), L)`` over the padded group count, round r
+    cooled by ``0.7 ** r`` (float32, as the reference computes them)."""
+    taus = np.concatenate([[0.0], np.geomspace(0.2, 3.0, lanes - 1)]).astype(np.float32)
+    order_taus = np.where(np.arange(lanes) % 2 == 1,
+                          np.geomspace(2.0, max(groups / 2.0, 4.0), lanes),
+                          0.0).astype(np.float32)
+    ladder = np.stack([np.stack([t * np.float32(_COOL ** r) for r in range(_ROUNDS)])
+                       for t in (taus, order_taus)])
+    return torch.from_numpy(ladder).to(device)
 
 
 def lp_logits(requests, compat, capacity, price) -> tuple[torch.Tensor, torch.Tensor]:
@@ -194,22 +251,39 @@ def lp_logits(requests, compat, capacity, price) -> tuple[torch.Tensor, torch.Te
 
 
 def draws(seed: int, lanes: int, groups: int, types: int, device):
-    """Every round's noise, drawn at once (no draw depends on a result):
-    type noise [rounds, lanes, G, T], order noise [rounds, lanes, G], and the
-    temperature ladders [2, rounds, lanes] on ``device``: type noise ``[0,
-    geomspace(0.2, 3, L - 1)]`` and, on odd lanes only, order noise
-    ``geomspace(2, max(G / 2, 4), L)`` over the padded group count, round r
-    cooled by ``0.7 ** r`` (float32, as the reference computes them)."""
-    taus = np.concatenate([[0.0], np.geomspace(0.2, 3.0, lanes - 1)]).astype(np.float32)
-    order_taus = np.where(np.arange(lanes) % 2 == 1,
-                          np.geomspace(2.0, max(groups / 2.0, 4.0), lanes),
-                          0.0).astype(np.float32)
-    ladder = np.stack([np.stack([t * np.float32(_COOL ** r) for r in range(_ROUNDS)])
-                       for t in (taus, order_taus)])
-    noise = gumbel(seed, _ROUNDS, lanes, 0, groups * types, device)
-    jitter = gumbel(seed, _ROUNDS, lanes, 1, groups, device)
-    return (noise.view(_ROUNDS, lanes, groups, types), jitter,
-            torch.from_numpy(ladder).to(device))
+    """Every round's noise, drawn at once (no draw depends on a result): type
+    noise [rounds, lanes, G, T] and order noise [rounds, lanes, G], as
+    ``jax.random.gumbel(k_pick, (G, T))`` and ``gumbel(k_order, (G,))`` draw
+    them for each round's lanes, each in ONE threefry call over every
+    round's lane keys; and ``ladders``."""
+    keys = [lane_keys(seed, r, lanes) for r in range(_ROUNDS)]
+    pick = [k for pk, _ in keys for k in pk]
+    order = [k for _, ok in keys for k in ok]
+    noise = gumbel_of_bits(random_bits(pick, groups * types, device))
+    jitter = gumbel_of_bits(random_bits(order, groups, device))
+    return (noise.view(_ROUNDS, lanes, groups, types), jitter.view(_ROUNDS, lanes, groups),
+            ladders(lanes, groups, device))
+
+
+class LaneNoise:
+    """``draws`` by (seed, lanes, G, T, device), the newest ``cap`` kept. The
+    noise depends on nothing else, so a solver that solves a shape bucket
+    again reuses its draws instead of enqueuing the threefry ops again; the
+    values are ``draws``' own. Callers only read the tensors."""
+
+    def __init__(self, cap: int = 4):
+        self.cap = cap
+        self._draws: dict = {}
+
+    def get(self, seed: int, lanes: int, groups: int, types: int, device) -> tuple:
+        key = (int(seed), int(lanes), int(groups), int(types), str(torch.device(device)))
+        hit = self._draws.pop(key, None)
+        if hit is None:
+            hit = draws(seed, lanes, groups, types, device)
+        self._draws[key] = hit
+        while len(self._draws) > self.cap:
+            self._draws.pop(next(iter(self._draws)))
+        return hit
 
 
 def lane_types(inp: dict, lanes: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -259,7 +333,8 @@ def first_round(inp: dict, lanes: int, seed: int = 0) -> tuple:
 _FIELDS = ("node_type", "node_price", "node_window", "n_open", "used", "placed", "unplaced")
 
 
-def lane_program(inp: dict, max_nodes: int, lanes: int, seed: int) -> dict:
+def lane_program(inp: dict, max_nodes: int, lanes: int, seed: int,
+                 noise_cache: Optional[LaneNoise] = None) -> dict:
     """The whole lane program on the inputs' device, as the reference's
     ``_program`` computes it: ``_ROUNDS`` rounds of ``lanes`` FFD solves
     (one ``ffd_solve_lanes`` call a round), then the best of all lanes.
@@ -270,11 +345,13 @@ def lane_program(inp: dict, max_nodes: int, lanes: int, seed: int) -> dict:
     ``used`` [N, R], and its ``placed`` [G, N] and ``unplaced`` [G] in
     encode group order; ``input_bytes``, the bytes one round's lane inputs
     take. Nothing here waits on the device: the winner is picked with
-    ``index_select`` by a device index, never by a host one."""
+    ``index_select`` by a device index, never by a host one. ``noise_cache``,
+    where given, serves the draws."""
     logits, usable = lp_logits(inp["requests"], inp["compat"], inp["capacity"], inp["price"])
     G, T = logits.shape
     dev = logits.device
-    noise, jitter, tau = draws(seed, lanes, G, T, dev)
+    draw = draws if noise_cache is None else noise_cache.get
+    noise, jitter, tau = draw(seed, lanes, G, T, dev)
     shared = lane_types(inp, lanes)
     types = torch.arange(T, device=dev)
     costs, picks, best_costs, best = [], [], [], []
@@ -308,7 +385,8 @@ def lane_program(inp: dict, max_nodes: int, lanes: int, seed: int) -> dict:
 
 
 def dispatch_optimizer(inp: dict, max_nodes: int, rank_k: int, seed: Optional[int] = None,
-                       lanes: Optional[int] = None) -> dict:
+                       lanes: Optional[int] = None,
+                       noise_cache: Optional[LaneNoise] = None) -> dict:
     """Enqueue the lane program on the solver's device inputs (the padded
     problem's tensors, uploaded once per problem), rank the best plan's
     launch options on the device (``rank_launch_options``, the ``rank_k``
@@ -317,7 +395,7 @@ def dispatch_optimizer(inp: dict, max_nodes: int, rank_k: int, seed: Optional[in
     A failure raises: the caller does not catch it."""
     lanes = lanes or optimizer_lanes()
     seed = optimizer_seed() if seed is None else int(seed)
-    out = lane_program(inp, int(max_nodes), int(lanes), seed)
+    out = lane_program(inp, int(max_nodes), int(lanes), seed, noise_cache=noise_cache)
     GB = inp["requests"].shape[0]
     E = int(max(1024, 4 * GB, 2 * max_nodes))
     nz, cnt, total_nz = compact_plan(out["placed"], E)
@@ -419,12 +497,13 @@ def validate_plan(problem, node_type, node_price, used, placed, node_window,
     gw = problem.group_window[:G]
     # groups on each node that lack each (zone, captype) bit: a 0/1 product,
     # exact in float32 below 2^24 groups
-    missing = on.T.astype(np.float32) @ (~gw).reshape(G, -1).astype(np.float32)
+    zc = int(np.prod(gw.shape[1:]))                           # (zone, captype) bits
+    missing = on.T.astype(np.float32) @ (~gw).reshape(G, zc).astype(np.float32)
     w = problem.type_window[t] & (missing == 0).reshape(t.shape[0], *gw.shape[1:])
-    empty = ~w.reshape(t.shape[0], -1).any(axis=1)
+    empty = ~w.reshape(t.shape[0], zc).any(axis=1)
     stale = np.zeros_like(empty)
     if node_window is not None:
-        stale = ~(node_window[:n_open] & w).reshape(t.shape[0], -1).any(axis=1)
+        stale = ~(node_window[:n_open] & w).reshape(t.shape[0], zc).any(axis=1)
     bad = on.any(axis=0) & (bad_compat | empty | stale)
     if bad.any():
         n = int(np.argmax(bad))

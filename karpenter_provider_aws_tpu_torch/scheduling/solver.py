@@ -28,11 +28,17 @@ the catalog's price and availability tensors, as in the reference.
 behind the same boundary: a measuring stick for ``cost_vs_oracle`` and
 ``cost_vs_greedy``. No solve falls through to it.
 
+The provisioning controller reaches both through the ``Solver`` protocol, fed
+by ``snapshot_existing_capacity``: ready, uncordoned nodes and in-flight
+claims offered as pre-opened rows (``existing=``), packed by the same kernel
+launch that opens new nodes.
+
 Not carried yet, and refused when asked for (``NotImplementedError``): gang
-scheduling, lazy lane admission on a cold start
-(``KARPENTER_TPU_OPT_COLD_SKIP=1``), partition lanes and why-attribution.
-There is no degraded mode: a CUDA solve either runs the kernel or raises,
-and a lane that raises raises out of the solve.
+scheduling (a gang-annotated pod at encode, a non-None ``gang_bound`` here),
+lazy lane admission on a cold start (``KARPENTER_TPU_OPT_COLD_SKIP=1``),
+partition lanes and partition-scoped snapshots, and why-attribution. There
+is no degraded mode: a CUDA solve either runs the kernel or raises, and a
+lane that raises raises out of the solve.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ import dataclasses
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import Mapping, Optional, Protocol, Sequence
 
 import numpy as np
 import torch
@@ -105,6 +111,105 @@ class ExistingNode:
     labels: dict = field(default_factory=dict)  # actual node labels (ditto)
 
 
+# ExistingNode.name prefix marking an IN-FLIGHT NodeClaim (launched, not
+# yet registered): plan "binds" to these become nominations, not pod binds.
+IN_FLIGHT_PREFIX = "nodeclaim:"
+
+
+def snapshot_existing_capacity(cluster, nominations=None, partition=None,
+                               usage=None) -> list[ExistingNode]:
+    """Ready, uncordoned nodes with their current usage, solver-shaped —
+    plus IN-FLIGHT NodeClaims (launched, unregistered) as pre-opened
+    capacity, the core scheduler's in-flight virtual nodes: a pod burst
+    lands on capacity already being paid for instead of opening more.
+
+    Node usage comes from one locked pass over the pod store; in-flight
+    usage is the requests of pods already nominated onto each claim
+    (``nominations``: pod uid -> claim name).
+
+    ``partition`` scopes the snapshot to one (nodepool, zone) — the
+    sharded provisioner's partition-local solves only offer the owned
+    partition's capacity, since a partition-pinned pod cannot land
+    anywhere else (and building 100k foreign rows per local solve would
+    cap the multi-replica speedup). ``usage`` lets one reconcile pass
+    share a single O(pods) node-usage walk across its per-partition
+    solves instead of paying it per bucket. This package has no partition
+    router yet: a ``partition`` raises ``NotImplementedError``."""
+    if partition is not None:
+        raise NotImplementedError(
+            "partition-scoped capacity snapshots are not supported by this package yet"
+        )
+    usage = usage if usage is not None else cluster.node_usage()
+    claims = cluster.snapshot_claims()  # ONE snapshot for both passes below
+    # a node whose claim is draining is capacity that is going away — never
+    # offer it (same filter as consolidation's encode_cluster)
+    draining = {c.status.node_name for c in claims if c.deleted}
+
+    # per-node agent reservations (ops/overhead.py) come off every offered
+    # node's allocatable — the same subtraction the cluster encoders make,
+    # so bind decisions and repack screens agree about real headroom
+    from ..ops import overhead as _overhead
+
+    def row(name, pool, itype, zone, captype, used, allocatable, taints, labels):
+        return ExistingNode(
+            name=name,
+            nodepool_name=pool,
+            instance_type=itype,
+            zone=zone,
+            capacity_type=captype,
+            used=(
+                used.astype(np.float32)
+                if used is not None
+                else np.zeros_like(allocatable, dtype=np.float32)
+            ),
+            allocatable=_overhead.apply(allocatable.astype(np.float32)),
+            taints=tuple(taints),
+            labels=dict(labels),
+        )
+
+    out: list[ExistingNode] = []
+    for node in cluster.snapshot_nodes():
+        if not node.ready or node.cordoned or node.name in draining:
+            continue
+        if partition is not None and (
+            (node.nodepool_name, node.zone()) != partition
+        ):
+            continue
+        out.append(row(
+            node.name, node.nodepool_name, node.instance_type(), node.zone(),
+            node.capacity_type(), usage.get(node.name), node.allocatable.v,
+            node.taints, node.labels,
+        ))
+
+    nominated_used: dict[str, np.ndarray] = {}
+    for uid, cname in (nominations or {}).items():
+        pod = cluster.pods.get(uid)
+        if pod is not None:
+            cur = nominated_used.get(cname)
+            nominated_used[cname] = (
+                pod.requests.v if cur is None else cur + pod.requests.v
+            )
+    for claim in claims:
+        if claim.deleted or not claim.is_launched() or claim.is_registered():
+            continue
+        itype = claim.labels.get(lbl.INSTANCE_TYPE_LABEL, "")
+        zone = claim.labels.get(lbl.TOPOLOGY_ZONE, "")
+        captype = claim.labels.get(lbl.CAPACITY_TYPE, "")
+        if not itype or not zone or claim.status.allocatable.is_zero():
+            continue  # launch not far enough along to offer
+        if partition is not None and (claim.nodepool_name, zone) != partition:
+            continue
+        out.append(row(
+            IN_FLIGHT_PREFIX + claim.name, claim.nodepool_name, itype, zone,
+            captype, nominated_used.get(claim.name),
+            claim.status.allocatable.v,
+            # permanent taints only: startup taints clear before any
+            # nominated pod can bind (registration clears them)
+            claim.taints, claim.labels,
+        ))
+    return out
+
+
 @dataclass
 class SolveResult:
     node_specs: list[NodeSpec] = field(default_factory=list)
@@ -119,6 +224,26 @@ class SolveResult:
 
     def pods_placed(self) -> int:
         return sum(len(s.pods) for s in self.node_specs) + len(self.binds)
+
+
+class Solver(Protocol):
+    """The boundary the provisioning controller solves through. A non-None
+    ``gang_bound`` (bound members per gang, passed when a pending pod is in
+    a gang) raises ``NotImplementedError`` here: gangs are not carried yet."""
+
+    def solve(
+        self,
+        pods: Sequence[Pod],
+        nodepools: Sequence[NodePool],
+        catalog: CatalogProvider,
+        in_use=None,
+        occupancy=None,
+        type_allow=None,
+        reserved_allow=None,
+        existing: Optional[Sequence[ExistingNode]] = None,
+        nodeclass_by_pool=None,
+        gang_bound: Optional[Mapping[str, int]] = None,
+    ) -> SolveResult: ...
 
 
 def lp_lower_bound(problem: EncodedProblem) -> float:
@@ -654,10 +779,18 @@ def _host_prefill(
     return binds, dataclasses.replace(problem, counts=counts, group_pods=group_pods)
 
 
-def _refuse_unsupported() -> None:
-    """Features the JAX package arms through its environment switches that
-    this package does not carry: an explicit request raises instead of being
-    ignored. Left unset, they are off here."""
+def _refuse_unsupported(gang_bound=None) -> None:
+    """What the JAX package's solver carries and this package does not yet,
+    refused with ``NotImplementedError`` instead of being ignored: gangs (a
+    gang-annotated pod, at encode, and a non-None ``gang_bound``, here),
+    why-attribution (``KARPENTER_TPU_WHY``) and partition lanes
+    (``KARPENTER_TPU_PARTITION_SOLVE``), each armed only by an explicit
+    switch, and lazy lane admission (``KARPENTER_TPU_OPT_COLD_SKIP=1``, at
+    the lane). Left unset, the switches are off here."""
+    if gang_bound is not None:
+        raise NotImplementedError(
+            "gang scheduling (gang_bound) is not supported by the torch solver yet"
+        )
     for var, what, off in (
         ("KARPENTER_TPU_WHY", "why-attribution", ("0",)),
         ("KARPENTER_TPU_PARTITION_SOLVE", "partition lanes", ("0", "auto")),
@@ -705,6 +838,8 @@ class TorchSolver:
         self._opt_gap_hist: dict[tuple, float] = {}
         # cumulative lane outcomes, stamped into provenance
         self._opt_counts = {"adopted": 0, "rejected": 0}
+        # the lane's draws per shape bucket, reused by later solves
+        self._lane_noise = _opt.LaneNoise()
 
     def backend_label(self) -> str:
         """What computed the LAST solve's plan: ``+opt-lp`` when the lane's
@@ -1006,7 +1141,8 @@ class TorchSolver:
             return None
         t0 = time.perf_counter()
         opt = _opt.dispatch_optimizer(
-            dev_in, n_rows, rank_k=min(MAX_INSTANCE_TYPE_OPTIONS, problem.capacity.shape[0]))
+            dev_in, n_rows, rank_k=min(MAX_INSTANCE_TYPE_OPTIONS, problem.capacity.shape[0]),
+            noise_cache=self._lane_noise)
         self.timings["opt_dispatch_ms"] = self.timings.get("opt_dispatch_ms", 0.0) + (
             (time.perf_counter() - t0) * 1e3
         )
@@ -1098,8 +1234,8 @@ class TorchSolver:
 
     def solve(self, pods, nodepools, catalog, in_use=None, occupancy=None, type_allow=None,
               reserved_allow=None, existing=None, nodeclass_by_pool=None,
-              revision=None) -> SolveResult:
-        _refuse_unsupported()
+              revision=None, gang_bound=None) -> SolveResult:
+        _refuse_unsupported(gang_bound)
         return _solve_multi_nodepool(self, pods, nodepools, catalog, in_use, occupancy,
                                      type_allow, reserved_allow, existing,
                                      nodeclass_by_pool=nodeclass_by_pool,
@@ -1165,8 +1301,8 @@ class HostSolver:
 
     def solve(self, pods, nodepools, catalog, in_use=None, occupancy=None, type_allow=None,
               reserved_allow=None, existing=None, nodeclass_by_pool=None,
-              revision=None) -> SolveResult:
-        _refuse_unsupported()
+              revision=None, gang_bound=None) -> SolveResult:
+        _refuse_unsupported(gang_bound)
         return _solve_multi_nodepool(self, pods, nodepools, catalog, in_use, occupancy,
                                      type_allow, reserved_allow, existing,
                                      nodeclass_by_pool=nodeclass_by_pool,

@@ -1,5 +1,4 @@
-"""Cluster state: the journaled store the consolidation pass reads (the JAX
-package's ``state/``, without its partition router, pending-pod index, gang
-counts and PDBs)."""
+"""Cluster state: the journaled store the controllers and the consolidation
+pass read (the JAX package's ``state/``, without its partition router)."""
 
 from .cluster import Cluster, Node  # noqa: F401

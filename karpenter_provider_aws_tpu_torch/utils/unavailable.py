@@ -27,10 +27,29 @@ class UnavailableOfferings:
     def _key(capacity_type: str, instance_type: str, zone: str) -> str:
         return f"{capacity_type}:{instance_type}:{zone}"
 
+    def _publish_size(self, count: Optional[int] = None) -> None:
+        """Keep the ``karpenter_ice_cache_size`` gauge on the live key
+        count — refreshed at every mutation AND every read that computes
+        the live set, because TTL expiry inside TTLCache is silent and a
+        mask that lapsed must stop being reported. Readers that already
+        scanned the key set pass its length so the hot freshness check
+        (``seq_num`` per encode) doesn't pay a second O(n) scan. Chaos
+        scenarios assert this gauge's growth under ICE storms and decay
+        after."""
+        try:
+            from ..metrics import ICE_CACHE_SIZE
+
+            if count is None:
+                count = len(self._cache.keys())
+            ICE_CACHE_SIZE.set(float(count))
+        except Exception:
+            pass
+
     def mark_unavailable(self, instance_type: str, zone: str, capacity_type: str, reason: str = "ICE") -> None:
         with self._lock:
             self._cache.set(self._key(capacity_type, instance_type, zone), reason)
             self._seq += 1
+            self._publish_size()
 
     def mark_unavailable_for_fleet_error(self, err, capacity_type: str) -> None:
         """Classify a launch error into per-(type, zone) unavailability
@@ -44,11 +63,13 @@ class UnavailableOfferings:
         with self._lock:
             self._cache.delete(self._key(capacity_type, instance_type, zone))
             self._seq += 1
+            self._publish_size()
 
     def flush(self) -> None:
         with self._lock:
             self._cache.flush()
             self._seq += 1
+            self._publish_size()
 
     def seq_num(self) -> tuple:
         """Composite-cache-key ingredient (parity: instancetype.go:121-139).
@@ -60,6 +81,7 @@ class UnavailableOfferings:
         """
         with self._lock:
             keys = tuple(sorted(self._cache.keys()))
+            self._publish_size(len(keys))
             return (self._seq, keys)
 
     def entries(self) -> list[tuple[str, str, str]]:
@@ -70,6 +92,7 @@ class UnavailableOfferings:
         here was the one racy accessor in the class)."""
         with self._lock:
             keys = self._cache.keys()
+            self._publish_size(len(keys))
         out = []
         for k in keys:
             ct, it, z = k.split(":", 2)
