@@ -4,8 +4,8 @@
 
 It drives the package's paths: the provisioning solve (the FFD kernel), with
 the market on in phase 11, the consolidation screen (the repack kernel), the
-consolidation pass under churn (phase 10) and the provisioning control plane
-(phase 13). Phases, each printing one
+consolidation pass under churn (phase 10), the provisioning control plane
+(phase 13) and its disruption half (phases 14-15). Phases, each printing one
 JSON line (any failure exits non-zero):
   1. probe   — device name, compute capability (must be 9.0), nvidia-smi;
   2. build   — compile every kernel under karpenter_provider_aws_tpu_torch/csrc
@@ -126,8 +126,42 @@ JSON line (any failure exits non-zero):
                types, zones and capacity types; pods sharing a node; pending
                pods; audit decisions); every pass must leave
                ``manager.errors`` empty;
+  14. controlplane_config4 — the disruption half of the control plane on
+               config4 (``config4_consolidation``'s controller pass, nothing
+               cut): 5,000 spot c/m nodes and 22,791 pods in
+               ``new_environment()``, each claim backed by a seeded instance
+               and the termination finalizer; the pool consolidating after
+               60 s under a 10% budget, the clock 120 s on, one
+               ``env.disruption.reconcile()`` timed as ``controller_pass_ms``
+               with its split (scan, phases, encode, screen dispatch and
+               wait, candidate walk, feasible-prefix search, commits,
+               replacements; the screen's ``LAST_SCREEN``), which must launch
+               the repack kernel; then manager passes until no pod is
+               pending and no claim is deleting (termination drains, the host
+               binder and the provisioner re-place the pods onto the
+               survivors, the FFD kernel at least once, and the disruption
+               controller consolidates on in every pass); then 5 warm
+               disruption passes (50 pods finish before each, the clock
+               past consolidate-after) with p50 / p99, and one ``ct``
+               screened on the card and the CPU in turns; the first pass
+               and the settle repeat on ``new_environment(device="cpu")``
+               and must match (``cluster_cases.observe_lifecycle``:
+               disruptions and reasons, launches, pods sharing a node,
+               pending pods, the whole audit trail, its ring sized to keep
+               every record, the reaped lists and the claims);
+  15. controlplane_interruption — config7's 2,000 live spot nodes as
+               launched claims, a spot-interruption warning for 200 of them
+               (RandomState(2)) through the fake queue, manager passes until
+               nothing is pending and no claim is deleting: the FFD kernel at
+               least once, the offerings masked, binds onto live nodes
+               against fresh claims; repeated on the CPU and equal;
+               ``disruption_multi_replace`` — the multi-replace chooser on
+               ``config6_multi_replace_optimizer``'s seeds 0-11 (host work):
+               cost over the prefix walk's, p95 must be the reference's
+               0.3321;
 then the kernels line, the card's name and power limit, and the result line.
-It needs the repository's package beside it and a CUDA device.
+It needs the repository's package beside it and a CUDA device; without
+either it prints no result and exits 2.
 """
 
 from __future__ import annotations
@@ -351,62 +385,19 @@ def repack_bytes_and_ops(t) -> dict:
             "walk_ms": walk_ops / F32_FLOPS * 1e3}
 
 
-def add_config4_node(cluster, catalog, i, it, zone, name: str = ""):
-    """One launched, registered, ready spot node of the default pool and its
-    claim, as ``_synth_cluster`` makes them; names come from ``i`` unless
-    ``name`` names the claim."""
-    from karpenter_provider_aws_tpu_torch.models import labels as lbl
-    from karpenter_provider_aws_tpu_torch.models.nodeclaim import NodeClaim
-    from karpenter_provider_aws_tpu_torch.state import Node
-
-    claim = NodeClaim(name=name or f"default-{i:x}", nodepool_name="default",
-                      nodeclass_name="default", instance_type_options=[it.name],
-                      zone_options=[zone], capacity_type_options=["spot"])
-    claim.status.provider_id = f"cloud:///{zone}/i-bench{i}"
-    claim.status.capacity = it.capacity()
-    claim.status.allocatable = catalog.allocatable(it)
-    claim.labels.update(it.labels())
-    claim.labels[lbl.TOPOLOGY_ZONE] = zone
-    claim.labels[lbl.CAPACITY_TYPE] = "spot"
-    claim.labels[lbl.NODEPOOL] = "default"
-    for cond in ("Launched", "Registered", "Initialized"):
-        claim.status.set_condition(cond, True)
-    cluster.apply(claim)
-    node = Node(name=f"node-{claim.name}", provider_id=claim.status.provider_id,
-                nodepool_name="default", nodeclaim_name=claim.name,
-                labels=dict(claim.labels), capacity=claim.status.capacity,
-                allocatable=claim.status.allocatable, ready=True)
-    node.labels[lbl.HOSTNAME] = node.name
-    claim.status.node_name = node.name
-    cluster.apply(node)
-    return node
-
-
-def config4_types(catalog) -> list:
-    return [t for t in catalog.list() if t.category in ("c", "m") and 4 <= t.vcpus <= 16]
-
-
 def config4_cluster(n_nodes=5000, pods_per_node=8):
     """The repo's config4 cluster (``benchmarks/solve_configs.py``
     ``_synth_cluster``): RandomState(1), c/m types of 4-16 vCPUs, spot, one
     claim and one ready node each, 1..8 pods of 250m/512Mi bound to it, in
     the port's journaled store."""
     from karpenter_provider_aws_tpu_torch.catalog import CatalogProvider
-    from karpenter_provider_aws_tpu_torch.models.pod import make_pods
+    from karpenter_provider_aws_tpu_torch.ops import cluster_cases
     from karpenter_provider_aws_tpu_torch.state import Cluster
 
     catalog = CatalogProvider()
     cluster = Cluster()
-    rng = np.random.RandomState(1)
-    types = config4_types(catalog)
-    for i in range(n_nodes):
-        it = types[rng.randint(len(types))]
-        zone = catalog.zones[rng.randint(len(catalog.zones))]
-        node = add_config4_node(cluster, catalog, i, it, zone)
-        fill = rng.randint(1, pods_per_node + 1)
-        for p in make_pods(fill, f"p{i}", {"cpu": "250m", "memory": "512Mi"}):
-            cluster.apply(p)
-            cluster.bind_pod(p.uid, node.name)
+    cluster_cases.synth_cluster(port_pkg(), cluster, catalog, n_nodes, pods_per_node,
+                                name=lambda i: f"default-{i:x}")
     return cluster, catalog
 
 
@@ -649,7 +640,9 @@ def _membership_churn(cluster, catalog, names, rng, n, next_node) -> int:
     property (``tests/test_encode_incremental.py``): a direct cordon flip, a
     claim marked deleted, a node added, a node deleted. Returns the next
     free node index."""
-    types = config4_types(catalog)
+    from karpenter_provider_aws_tpu_torch.ops import cluster_cases
+
+    types = cluster_cases.config4_types(catalog)
     for _ in range(n):
         op = 3 + rng.randint(4)
         if op == 3:
@@ -665,7 +658,8 @@ def _membership_churn(cluster, catalog, names, rng, n, next_node) -> int:
         elif op == 5:
             it = types[rng.randint(len(types))]
             zone = catalog.zones[rng.randint(len(catalog.zones))]
-            names.append(add_config4_node(cluster, catalog, next_node, it, zone).name)
+            names.append(cluster_cases.add_node(port_pkg(), cluster, catalog, next_node, it,
+                                                zone, name=f"default-{next_node:x}").name)
             next_node += 1
         else:
             node = cluster.nodes.get(names[rng.randint(len(names))])
@@ -1307,25 +1301,18 @@ def cmr_pool():
                     disruption=Disruption(consolidate_after_s=None))
 
 
-def config7_env(device=None):
+def config7_env(device=None, audit_capacity=None):
     """``config7_steady_state``'s live cluster in a fresh environment: 2,000
     spot c/m nodes of 4-16 vCPUs (RandomState(1), ``_synth_cluster``), each
     with 1-6 bound pods of 250m/512Mi, in the default c/m/r pool."""
-    from karpenter_provider_aws_tpu_torch.models.pod import make_pods
+    from karpenter_provider_aws_tpu_torch.ops import cluster_cases
     from karpenter_provider_aws_tpu_torch.testenv import new_environment
 
-    env = new_environment(device=device)
+    env = new_environment(device=device, audit_capacity=audit_capacity)
     env.apply_defaults(cmr_pool())
-    rng = np.random.RandomState(1)
-    types = config4_types(env.catalog)
-    for i in range(CONFIG7_NODES):
-        it = types[rng.randint(len(types))]
-        zone = env.catalog.zones[rng.randint(len(env.catalog.zones))]
-        # "live-" names: the claims the provisioner launches are "default-"
-        node = add_config4_node(env.cluster, env.catalog, i, it, zone, name=f"live-{i:x}")
-        for p in make_pods(rng.randint(1, 7), f"p{i}", {"cpu": "250m", "memory": "512Mi"}):
-            env.cluster.apply(p)
-            env.cluster.bind_pod(p.uid, node.name)
+    # "live-" names: the claims the provisioner launches are "default-"
+    cluster_cases.synth_cluster(port_pkg(), env.cluster, env.catalog, CONFIG7_NODES, 6,
+                                name=lambda i: f"live-{i:x}")
     return env
 
 
@@ -1531,9 +1518,328 @@ def controlplane_phase(smi: str) -> dict:
 
 
 
+#: the disruption half's cells: config4's controller pass
+#: (benchmarks/solve_configs.py config4_consolidation, nothing cut) and 200
+#: spot interruptions on config7's cluster
+CONFIG4_NODES, CONFIG4_PODS_PER_NODE, CONFIG4_PODS = 5000, 8, 22791
+SETTLE_MAX_PASSES = 80
+#: the audit ring of phases 14-15, whose whole trail the card's and the
+#: CPU's runs are held equal on (config4's settle writes tens of thousands)
+AUDIT_CAPACITY = 1 << 20
+WARM_DISRUPTION_PASSES = 5
+INTERRUPTED_NODES = 200
+DISRUPTION_SPLIT = ("scan_ms", "phases_ms", "encode_ms", "screen_dispatch_ms", "candidates_ms",
+                    "screen_wait_ms", "search_ms", "commit_ms", "multi_replace_ms",
+                    "replace_ms", "wall_ms")
+#: the reference's CPU row of config6_multi_replace_optimizer
+MULTI_REPLACE_P95 = 0.3321
+
+
+def port_pkg():
+    """This package's names that ``ops/cluster_cases.py`` builds with."""
+    import importlib
+
+    from karpenter_provider_aws_tpu_torch.ops import cluster_cases
+
+    return cluster_cases.names(
+        lambda name: importlib.import_module(f"karpenter_provider_aws_tpu_torch.{name}"))
+
+
+def config4_env(device=None):
+    """config4's cluster (``_synth_cluster``: 5,000 spot c/m nodes of 4-16
+    vCPUs, RandomState(1), 22,791 pods of 250m/512Mi) in a fresh
+    environment's store, in the default c/m/r pool, each claim backed by a
+    running instance and the termination finalizer as a launch leaves it."""
+    from karpenter_provider_aws_tpu_torch.ops import cluster_cases
+    from karpenter_provider_aws_tpu_torch.testenv import new_environment
+
+    pkg = port_pkg()
+    env = new_environment(device=device, audit_capacity=AUDIT_CAPACITY)
+    env.apply_defaults(cmr_pool())
+    # "c4-" names: the claims that launches name by the sequence are "default-"
+    cluster_cases.synth_cluster(pkg, env.cluster, env.catalog, CONFIG4_NODES,
+                                CONFIG4_PODS_PER_NODE, name=lambda i: f"c4-{i:x}")
+    cluster_cases.seed_launched(pkg, env)
+    return env
+
+
+def settle(env) -> list:
+    """Manager passes until one leaves no pod pending and no claim deleting
+    (``cluster_cases.settle``; the disruption controller runs in every
+    pass, so a consolidating pool keeps disrupting while it finds
+    candidates); every pass must leave ``manager.errors`` empty. Returns
+    each pass's wall and the garbage collector's share of it, the pods it
+    found pending and the claims deleting, the provisioner's split when it
+    solved and the disruption controller's."""
+    from karpenter_provider_aws_tpu_torch.ops import cluster_cases
+
+    passes = []
+
+    def timed_step(env):
+        pending = len(env.cluster.pending_pods())
+        deleting = sum(1 for c in env.cluster.nodeclaims.values() if c.deleted)
+        env.provisioning.timings = {}
+        before = len(env.disruption.disrupted)
+        t0 = time.perf_counter()
+        with gc_pauses() as paused:
+            env.step()
+        wall = (time.perf_counter() - t0) * 1e3
+        if env.manager.errors:
+            raise AssertionError(f"reconcile errors: {env.manager.errors}")
+        solved = dict(env.provisioning.timings)
+        passes.append({"pass_ms": wall, "gc_ms": paused[0], "pending": pending,
+                       "deleting": deleting,
+                       "provisioning": {k: solved.get(k) for k in (
+                           "pods", "n_pre", "binds", "specs", "wall_ms", "prepare_ms",
+                           "snapshot_ms", "solve_ms", "bind_ms", "oracle_ms")}
+                       if solved else {},
+                       "rows": env.solver.timings.get("n_rows") if solved else None,
+                       "disruption_ms": env.disruption.timings.get("wall_ms"),
+                       "disrupted": len(env.disruption.disrupted) - before})
+
+    cluster_cases.settle(env, timed_step, SETTLE_MAX_PASSES)
+    return passes
+
+
+def same_lifecycle(card: dict, cpu: dict, what: str) -> None:
+    """Every key of ``cluster_cases.observe_lifecycle`` equal."""
+    differ = [key for key in card if card[key] != cpu[key]]
+    if differ:
+        raise AssertionError(f"{what}: {differ} differ between the card and the CPU")
+
+
+def controlplane_config4(device=None) -> tuple:
+    """One controller pass on config4 (the pool consolidating after 60 s
+    under a 10% budget, the clock 120 s on), then manager passes until the
+    cluster settles. Returns the observation, the run's numbers and the
+    environment (open)."""
+    from karpenter_provider_aws_tpu_torch.ops import (
+        cluster_cases, consolidate, ffd_cuda, repack_cuda,
+    )
+
+    t_build = time.perf_counter()
+    env = config4_env(device)
+    build_s = time.perf_counter() - t_build
+    if len(env.cluster.pods) != CONFIG4_PODS:
+        raise AssertionError(f"config4 built {len(env.cluster.pods)} pods, expected {CONFIG4_PODS}")
+    placed = {p.uid: p.node_name for p in env.cluster.pods.values()}
+    pool = env.cluster.nodepools["default"]
+    pool.disruption.consolidate_after_s = 60
+    pool.disruption.budgets = ["10%"]
+    env.clock.advance(120)
+    repack_cuda.LAUNCHES = 0
+    consolidate.LAST_SCREEN.clear()
+    t0 = time.perf_counter()
+    with gc_pauses() as paused:
+        env.disruption.reconcile()
+    pass_ms = (time.perf_counter() - t0) * 1e3
+    if env.manager.errors:
+        raise AssertionError(f"reconcile errors: {env.manager.errors}")
+    first = {"controller_pass_ms": pass_ms, "gc_ms": paused[0],
+             "split_ms": dict(env.disruption.timings),
+             "screen": dict(consolidate.LAST_SCREEN),
+             "disrupted": len(env.disruption.disrupted),
+             "reasons": sorted({r.split(":")[0] for _, r in env.disruption.disrupted}),
+             "repack_launches": repack_cuda.LAUNCHES}
+    ffd_cuda.LAUNCHES = ffd_cuda.LANES = 0
+    repack_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    passes = settle(env)
+    settle_ms = (time.perf_counter() - t0) * 1e3
+    run = {"build_s": build_s, "pods": CONFIG4_PODS, "first": first, "passes": passes,
+           "settle_ms": settle_ms,
+           "ffd_launches": ffd_cuda.LAUNCHES, "ffd_lanes": ffd_cuda.LANES,
+           "repack_launches_settle": repack_cuda.LAUNCHES,
+           "nodes_after": len(env.cluster.nodes)}
+    return cluster_cases.observe_lifecycle(env, placed), run, env
+
+
+def warm_disruption_passes(env, n: int) -> dict:
+    """``n`` disruption passes on the settled cluster: before each, 50 bound
+    pods finish (RandomState(3), the churn phase's light pass) and the clock
+    moves past consolidate-after, so each pass encodes a patch and screens
+    through the mirror (patched, or uploaded anew where the previous pass's
+    disruptions changed the node set). Returns the walls, their split, what
+    each screened and the repack kernel's launches."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidate, repack_cuda
+
+    rng = np.random.RandomState(3)
+    walls, splits, screens, disrupted = [], [], [], []
+    repack_cuda.LAUNCHES = 0
+    for _ in range(n):
+        bound = sorted((p for p in env.cluster.pods.values() if p.node_name),
+                       key=lambda p: p.name)
+        for i in rng.choice(len(bound), size=min(50, len(bound)), replace=False):
+            env.cluster.delete(bound[int(i)])
+        env.clock.advance(61)
+        before = len(env.disruption.disrupted)
+        consolidate.LAST_SCREEN.clear()
+        t0 = time.perf_counter()
+        env.disruption.reconcile()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if env.manager.errors:
+            raise AssertionError(f"reconcile errors: {env.manager.errors}")
+        splits.append(dict(env.disruption.timings))
+        screens.append({k: consolidate.LAST_SCREEN.get(k) for k in (
+            "backend", "residency", "memo_hit", "wall_ms")})
+        disrupted.append(len(env.disruption.disrupted) - before)
+    return {"walls_ms": walls, "p50_ms": _pct(walls, 50), "p99_ms": _pct(walls, 99),
+            "splits_ms": splits, "screens": screens, "disrupted": disrupted,
+            "repack_launches": repack_cuda.LAUNCHES}
+
+
+def cross_device_screens(env) -> dict:
+    """The card's and the CPU's screens of one ``ct`` in one process, in
+    turns: each backend answers from its own mirror and its own memo (the
+    mirror's holders are keyed by encoder chain and device, the mask memo by
+    backend), never from the other's, and the masks agree."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidate
+
+    ct = consolidate.encode_cluster(env.cluster, env.catalog)
+    seen = []
+    masks = {}
+    for device in ("cuda", "cpu", "cuda", "cpu"):
+        mask = consolidate.dispatch_screen(ct, device=device).wait()
+        screen = consolidate.LAST_SCREEN
+        backend = "cuda-repack" if device == "cuda" else "torch-plain"
+        if screen["backend"] != backend or screen["memo_hit"]:
+            raise AssertionError(f"a {device} screen after the other device's answered "
+                                 f"{screen['backend']}, memo_hit={screen['memo_hit']}")
+        masks.setdefault(device, mask)
+        seen.append({k: screen.get(k) for k in ("backend", "residency", "memo_hit")})
+    if not np.array_equal(masks["cuda"], masks["cpu"]):
+        raise AssertionError("the card's and the CPU's masks differ on one ct")
+    return {"screens": seen, "nodes": len(ct.node_names), "passed": int(masks["cuda"].sum())}
+
+
+def controlplane_interruption(device=None) -> tuple:
+    """config7's 2,000 live spot nodes (launched claims), a spot-interruption
+    warning for each of 200 nodes picked with RandomState(2), then manager
+    passes until no pod is pending and no claim is deleting. The
+    interruption controller first works the queue empty (10 messages a
+    receive, 20 receives: at its 2 s cadence, well inside one spot warning's
+    2 minutes), so that termination drains the 200 nodes in one pass and
+    the provisioner meets the burst, as it does when the warnings land
+    between two of its 10 s passes."""
+    from karpenter_provider_aws_tpu_torch.models import labels as lbl
+    from karpenter_provider_aws_tpu_torch.ops import cluster_cases, ffd_cuda
+
+    env = config7_env(device, AUDIT_CAPACITY)
+    cluster_cases.seed_launched(port_pkg(), env)
+    placed = {p.uid: p.node_name for p in env.cluster.pods.values()}
+    claims = list(env.cluster.nodeclaims.values())
+    picked = np.random.RandomState(2).choice(len(claims), size=INTERRUPTED_NODES, replace=False)
+    victims = [claims[int(i)] for i in picked]
+    drained = sum(len(env.cluster.pods_on_node(c.status.node_name)) for c in victims)
+    for c in victims:
+        env.queue.send({"source": "aws.ec2",
+                        "detail-type": "EC2 Spot Instance Interruption Warning",
+                        "detail": {"instance-id": c.status.provider_id.rsplit("/", 1)[-1]}})
+    ffd_cuda.LAUNCHES = ffd_cuda.LANES = 0
+    t0 = time.perf_counter()
+    receives = 0
+    while len(env.queue):
+        env.interruption.reconcile()
+        receives += 1
+    handle_ms = (time.perf_counter() - t0) * 1e3
+    passes = settle(env)
+    total_ms = (time.perf_counter() - t0) * 1e3
+    gone = sum(1 for c in victims if c.name not in env.cluster.nodeclaims)
+    if gone != INTERRUPTED_NODES:
+        raise AssertionError(f"{gone} of {INTERRUPTED_NODES} interrupted claims are gone")
+    masked = sorted(env.catalog.unavailable.entries())
+    if not masked or any(ct != lbl.CAPACITY_TYPE_SPOT for ct, _, _ in masked):
+        raise AssertionError(f"masked offerings {masked[:5]}")
+    run = {"drained_pods": drained, "receives": receives, "handle_ms": handle_ms,
+           "passes": passes, "total_ms": total_ms,
+           "ffd_launches": ffd_cuda.LAUNCHES, "ffd_lanes": ffd_cuda.LANES,
+           "masked_offerings": len(masked), "interrupted": INTERRUPTED_NODES,
+           "launched_claims": sum(1 for c in env.cluster.nodeclaims.values()
+                                  if c.name.startswith("default-"))}
+    out = cluster_cases.observe_lifecycle(env, placed)
+    env.close()
+    return out, run
+
+
+def disruption_phase(smi: str) -> dict:
+    """Phases 14-15 and the multi-replace chooser: the disruption half of the
+    control plane through ``new_environment()``. Returns the kernels'
+    launches on each path."""
+    from karpenter_provider_aws_tpu_torch.ops import cluster_cases
+    from karpenter_provider_aws_tpu_torch.testenv import new_environment
+
+    os.environ["KARPENTER_TPU_SERIAL_LAUNCH"] = "1"  # the CPU runs must name claims alike
+
+    # 14. config4's controller pass on the card, the settle, warm passes
+    obs4, run4, env4 = controlplane_config4()
+    if run4["first"]["repack_launches"] < 1:
+        raise AssertionError("the disruption controller never launched the repack kernel")
+    if run4["first"]["screen"].get("backend") != "cuda-repack":
+        raise AssertionError(f"screened on {run4['first']['screen'].get('backend')}")
+    if run4["ffd_launches"] < 1:
+        raise AssertionError("the drained pods never reached the FFD kernel")
+    warm = warm_disruption_passes(env4, WARM_DISRUPTION_PASSES)
+    cross = cross_device_screens(env4)
+    env4.close()
+    obs4_cpu, run4_cpu, env4_cpu = controlplane_config4("cpu")
+    env4_cpu.close()
+    if run4_cpu["first"]["screen"].get("backend") != "torch-plain":
+        raise AssertionError("the CPU environment did not screen with the plain version")
+    same_lifecycle(obs4, obs4_cpu, "controlplane_config4")
+    solved = [p for p in run4["passes"] if p["provisioning"]]
+    emit({"phase": "controlplane_config4", "nodes": CONFIG4_NODES,
+          "pods": run4["pods"],
+          "build_s": run4["build_s"], **run4["first"],
+          "settle_passes": len(run4["passes"]), "settle_ms": run4["settle_ms"],
+          "settle_pass_walls_ms": [p["pass_ms"] for p in run4["passes"]],
+          "settle_gc_ms": [p["gc_ms"] for p in run4["passes"]],
+          "settle_passes_detail": run4["passes"],
+          "disrupted_total": len(obs4["disrupted"]), "nodes_after": run4["nodes_after"],
+          "ffd_launches": run4["ffd_launches"], "ffd_lanes": run4["ffd_lanes"],
+          "repack_launches_settle": run4["repack_launches_settle"],
+          "n_pre": [p["provisioning"]["n_pre"] for p in solved],
+          "rows": [p["rows"] for p in solved],
+          "bound_live": obs4["bound_live"], "bound_fresh": obs4["bound_fresh"],
+          "warm": warm, "cross_device": cross,
+          "cpu_controller_pass_ms": run4_cpu["first"]["controller_pass_ms"],
+          "cpu_split_ms": run4_cpu["first"]["split_ms"], "cpu_settle_ms": run4_cpu["settle_ms"],
+          "manager_errors": [], "cpu_run_equal": True, "card": smi})
+
+    # 15. 200 spot interruptions on config7's cluster, on the card and the CPU
+    obs15, run15 = controlplane_interruption()
+    if run15["ffd_launches"] < 1:
+        raise AssertionError("the interrupted nodes' pods never reached the FFD kernel")
+    obs15_cpu, run15_cpu = controlplane_interruption("cpu")
+    same_lifecycle(obs15, obs15_cpu, "controlplane_interruption")
+    emit({"phase": "controlplane_interruption", "nodes": CONFIG7_NODES, **run15,
+          "pass_walls_ms": [p["pass_ms"] for p in run15["passes"]],
+          "handled": len(obs15["handled"]),
+          "bound_live": obs15["bound_live"], "bound_fresh": obs15["bound_fresh"],
+          "cpu_total_ms": run15_cpu["total_ms"], "manager_errors": [], "cpu_run_equal": True,
+          "card": smi})
+
+    # the multi-replace chooser, config6_multi_replace_optimizer (host work)
+    t0 = time.perf_counter()
+    row = cluster_cases.multi_replace_row(port_pkg(), new_environment)
+    if row["cost_vs_oracle_p95"] != MULTI_REPLACE_P95:
+        raise AssertionError(f"multi-replace p95 {row['cost_vs_oracle_p95']}, "
+                             f"the reference's {MULTI_REPLACE_P95}")
+    emit({"phase": "disruption_multi_replace", **row, "wall_ms": (time.perf_counter() - t0) * 1e3,
+          "reference_p95": MULTI_REPLACE_P95, "backend": "host", "card": smi})
+    os.environ.pop("KARPENTER_TPU_SERIAL_LAUNCH")
+    return {"config4_repack": run4["first"]["repack_launches"],
+            "config4_ffd": run4["ffd_launches"], "interruption_ffd": run15["ffd_launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    try:
+        import karpenter_provider_aws_tpu_torch  # noqa: F401
+    except ImportError:
+        print("chip_smoke: the package karpenter_provider_aws_tpu_torch is not beside this "
+              "script; nothing was run", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     from karpenter_provider_aws_tpu_torch.catalog import CatalogProvider
@@ -1689,6 +1995,8 @@ def main() -> int:
     market_launches = market_phase(smi)
     lanes = optimizer_phase(dev, smi, pool, catalog, pods, pods8)
     cp = controlplane_phase(smi)
+    dp = disruption_phase(smi)
+    repack_line["launches_by_path"]["controlplane_config4"] = dp["config4_repack"]
 
     main = timing[f"headline_{N_main}"]  # the FFD kernel's line: the main path's shapes
     emit({"kernels": [{
@@ -1700,7 +2008,9 @@ def main() -> int:
         "launches_by_path": {"headline": launches, "market": market_launches,
                              "headline_lane_on": lanes["launches"],
                              "controlplane_config7": cp["config7"],
-                             "controlplane_config8": cp["config8"]},
+                             "controlplane_config8": cp["config8"],
+                             "controlplane_config4": dp["config4_ffd"],
+                             "controlplane_interruption": dp["interruption_ffd"]},
         "lanes_by_path": {"headline_lane_on": lanes["lanes"],
                           "controlplane_config8": cp["config8_lanes"]},
         "lane_launch": {k: {f: v[f] for f in ("N", "lanes", "lanes_device_ms",

@@ -116,7 +116,10 @@ def cluster_from_reference(snapshot: Mapping[str, Sequence[Mapping]], cluster=No
 
     - ``nodepools``: ``name``, ``nodeclass_name``, ``requirements`` as
       (key, operator value, values) triples, ``labels``, ``annotations``,
-      ``taints`` as (key, value, effect), ``weight``;
+      ``taints`` as (key, value, effect), ``weight``, and ``disruption``
+      when given: ``consolidation_policy``, ``consolidate_after_s``,
+      ``expire_after_s`` and ``budgets`` (each a string, or a (nodes,
+      reasons, schedule, duration_s) tuple);
     - ``nodeclasses``: ``name``, ``role``;
     - ``claims``: ``name``, ``nodepool_name``, ``nodeclass_name``,
       ``labels``, ``annotations``, the ``instance_type_options``,
@@ -131,7 +134,7 @@ def cluster_from_reference(snapshot: Mapping[str, Sequence[Mapping]], cluster=No
     """
     from .models.nodeclaim import NodeClaim
     from .models.nodeclass import NodeClass
-    from .models.nodepool import NodePool, Taint
+    from .models.nodepool import Budget, Disruption, NodePool, Taint
     from .models.pod import Pod
     from .models.requirements import Operator, Requirement
     from .models.resources import ResourceVector
@@ -150,6 +153,14 @@ def cluster_from_reference(snapshot: Mapping[str, Sequence[Mapping]], cluster=No
             labels=dict(p.get("labels", {})), annotations=dict(p.get("annotations", {})),
             taints=[Taint(k, v, e) for k, v, e in p.get("taints", ())],
             weight=int(p.get("weight", 0)),
+            **({"disruption": Disruption(
+                consolidation_policy=d["consolidation_policy"],
+                consolidate_after_s=d["consolidate_after_s"],
+                expire_after_s=d["expire_after_s"],
+                budgets=[b if isinstance(b, str) else Budget(nodes=b[0], reasons=tuple(b[1]),
+                                                             schedule=b[2], duration_s=b[3])
+                         for b in d["budgets"]],
+            )} if (d := p.get("disruption")) is not None else {}),
         ))
     for nc in snapshot.get("nodeclasses", ()):
         cluster.apply(NodeClass(name=nc["name"], role=nc.get("role", "")))

@@ -50,7 +50,8 @@ class Obs:
                  specs=None):
         self.clock = clock
         self.recorder = recorder
-        self.audit = audit or AuditLog(clock=clock)
+        # an empty AuditLog is falsy (it has __len__): test for None
+        self.audit = audit if audit is not None else AuditLog(clock=clock)
         self.slo = SLOEngine(clock=clock, recorder=recorder, specs=specs)
         # cross-replica correlation ledger (trace/correlate.py): the SLI
         # observer mints ids at first sight and controllers thread hops
@@ -125,13 +126,13 @@ class Obs:
 
 
 def install(cluster=None, recorder=None, clock=None, specs=None,
-            register_debug: bool = True) -> Obs:
+            register_debug: bool = True, audit: Optional[AuditLog] = None) -> Obs:
     """Build an Obs bundle, attach its lifecycle observer to ``cluster``
     (as ``cluster.observer`` — the sanctioned mutation surface calls its
     hooks), and register the /debug pages on the default metrics
     registry. Safe to call per hermetic environment: pages re-bind to the
     newest bundle."""
-    bundle = Obs(clock=clock, recorder=recorder, specs=specs)
+    bundle = Obs(clock=clock, recorder=recorder, specs=specs, audit=audit)
     if cluster is not None:
         cluster.observer = bundle.sli
         bundle.cluster = cluster

@@ -1,19 +1,20 @@
-"""Hermetic environment wiring the provisioning control plane against fakes.
+"""Hermetic environment wiring the control plane against fakes.
 
 The JAX package's ``testenv.py``: one call builds the fake cloud, catalog,
-cluster store, cloud provider and controllers on an injectable fake clock
-with millisecond batch windows; ``reset()`` wipes state between specs;
+cluster store, cloud provider and every controller on an injectable fake
+clock with millisecond batch windows; ``reset()`` wipes state between specs;
 ``step()`` runs one deterministic reconcile pass over every controller.
 
-This package carries the provisioning half: the ``Manager`` runs, in the
-reference's order, nodeclass status, nodeclass hash, registration, the host
-binder (scheduling) and the provisioner, which solves on ``TorchSolver`` —
-on the card unless ``device="cpu"`` is asked for. The environment's
-disruption, interruption, termination, garbage-collection, liveness,
-tagging and nodeclass-termination controllers are not carried yet, and
-reading one raises ``NotImplementedError``. There is no breaker and no
+The ``Manager`` runs the reference's twelve controllers in its order:
+nodeclass status, nodeclass hash, interruption, termination, registration,
+the host binder (scheduling), the provisioner, tagging, disruption, garbage
+collection, liveness and nodeclass termination. The provisioner solves on
+``TorchSolver`` and the disruption controller screens on the same device —
+the card unless ``device="cpu"`` is asked for. There is no breaker and no
 fault gate to configure: a reconcile that raises is isolated into
-``manager.errors``, which every harness reads after each step.
+``manager.errors``, which every harness reads after each step. The
+replica set of the JAX package (``ReplicaSetEnv``, ``new_replicaset``) is
+not carried: ``new_replicaset`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,12 +25,19 @@ from typing import Optional
 from .catalog.provider import CatalogProvider
 from .cloudprovider.cloudprovider import CloudProvider
 from .controllers import (
+    DisruptionController,
+    GarbageCollectionController,
+    InterruptionController,
+    LivenessController,
     Manager,
     NodeClassHashController,
     NodeClassStatusController,
+    NodeClassTerminationController,
     ProvisioningController,
     RegistrationController,
     SchedulingController,
+    TaggingController,
+    TerminationController,
 )
 from .events import EventRecorder
 from .fake import FakeCloud, FakeQueue
@@ -39,11 +47,6 @@ from .scheduling.solver import Solver, TorchSolver
 from .state.cluster import Cluster
 from .utils.batcher import BatcherOptions
 from .utils.clock import FakeClock
-
-#: the reference environment's controllers this package does not carry yet
-NOT_CARRIED = ("disruption", "interruption", "termination", "garbagecollection",
-               "liveness", "tagging", "nodeclass_termination")
-
 
 @dataclass
 class Environment:
@@ -57,21 +60,21 @@ class Environment:
     provisioning: ProvisioningController
     scheduling: SchedulingController
     registration: RegistrationController
+    termination: TerminationController
+    disruption: DisruptionController
+    interruption: InterruptionController
+    garbagecollection: GarbageCollectionController
+    liveness: LivenessController
+    tagging: TaggingController
     nodeclass_hash: NodeClassHashController
     nodeclass_status: NodeClassStatusController
+    nodeclass_termination: NodeClassTerminationController
     manager: Manager
     # env-local event sink on the env's FakeClock
     events: "EventRecorder" = None
     # env-local observability bundle (obs/): audit ring, SLO engine,
     # lifecycle SLI observer — installed on this env's cluster
     obs: "object" = None
-
-    def __getattr__(self, name: str):
-        if name in NOT_CARRIED:
-            raise NotImplementedError(
-                f"the {name} controller is not supported by this package yet"
-            )
-        raise AttributeError(name)
 
     def close(self) -> None:
         """Join the cloud provider's batcher worker pools."""
@@ -88,6 +91,12 @@ class Environment:
         self.cloudprovider.reset_caches()
         self.provisioning.nominations.clear()
         self.provisioning.last_unschedulable.clear()
+        self.disruption.disrupted.clear()
+        self.disruption._consol_seen.clear()
+        self.disruption._reject_logged.clear()
+        self.interruption.handled.clear()
+        self.garbagecollection.reaped.clear()
+        self.liveness.reaped.clear()
 
     def step(self, n: int = 1) -> None:
         """n deterministic reconcile passes over every controller."""
@@ -125,11 +134,21 @@ def seed_instance(cloud: FakeCloud, *, instance_id: str, instance_type: str,
     return inst
 
 
+def new_replicaset(*args, **kwargs):
+    """The JAX package's active-active replica set is not carried."""
+    raise NotImplementedError(
+        "the replica set (ReplicaSetEnv, ShardElector) is not supported by this package yet"
+    )
+
+
 def new_environment(solver: Optional[Solver] = None, device=None, zones=None,
-                    cluster_info=None) -> Environment:
+                    cluster_info=None, audit_capacity: Optional[int] = None) -> Environment:
     """The hermetic environment. The solver is ``TorchSolver(device=device)``
     unless one is passed in: ``device=None`` is the CUDA device, and the
-    tests pass ``device="cpu"``."""
+    tests pass ``device="cpu"``. The disruption controller screens on the
+    solver's device (a solver without one leaves it ``device``).
+    ``audit_capacity`` sizes the audit ring (default 8,192 records, the
+    newest kept) for a run whose whole trail is read back."""
     clock = FakeClock()
     cloud = FakeCloud(clock=clock, **({"zones": zones} if zones else {}))
     queue = FakeQueue()
@@ -147,15 +166,43 @@ def new_environment(solver: Optional[Solver] = None, device=None, zones=None,
     recorder = EventRecorder(clock=clock)
     from . import obs as obs_mod
 
-    obs_bundle = obs_mod.install(cluster=cluster, recorder=recorder, clock=clock)
+    audit = obs_mod.AuditLog(capacity=audit_capacity, clock=clock) if audit_capacity else None
+    obs_bundle = obs_mod.install(cluster=cluster, recorder=recorder, clock=clock, audit=audit)
     provisioning = ProvisioningController(cluster, solver, cloudprovider,
                                           recorder=recorder, obs=obs_bundle)
     scheduling = SchedulingController(cluster, provisioning, clock=clock)
     registration = RegistrationController(cluster, provisioning, clock=clock)
+    termination = TerminationController(cluster, cloudprovider, clock=clock)
+    # validation_period_s=0: specs drive single reconcile passes; the
+    # window's own behavior is tested explicitly
+    disruption = DisruptionController(cluster, cloudprovider, clock=clock,
+                                      provisioning=provisioning, recorder=recorder,
+                                      validation_period_s=0.0, obs=obs_bundle,
+                                      device=getattr(solver, "device", device))
+    interruption = InterruptionController(cluster, cloudprovider, queue,
+                                          recorder=recorder, obs=obs_bundle)
+    gc = GarbageCollectionController(cluster, cloudprovider, clock=clock)
+    liveness = LivenessController(cluster, clock=clock, recorder=recorder,
+                                  obs=obs_bundle)
+    tagging = TaggingController(cluster, cloudprovider)
     nc_hash = NodeClassHashController(cluster)
     nc_status = NodeClassStatusController(cluster, cloudprovider)
+    nc_term = NodeClassTerminationController(cluster, cloudprovider)
     manager = Manager(
-        [nc_status, nc_hash, registration, scheduling, provisioning],
+        [
+            nc_status,
+            nc_hash,
+            interruption,
+            termination,
+            registration,
+            scheduling,
+            provisioning,
+            tagging,
+            disruption,
+            gc,
+            liveness,
+            nc_term,
+        ],
         clock=clock,
         recorder=recorder,
     )
@@ -170,8 +217,15 @@ def new_environment(solver: Optional[Solver] = None, device=None, zones=None,
         provisioning=provisioning,
         scheduling=scheduling,
         registration=registration,
+        termination=termination,
+        disruption=disruption,
+        interruption=interruption,
+        garbagecollection=gc,
+        liveness=liveness,
+        tagging=tagging,
         nodeclass_hash=nc_hash,
         nodeclass_status=nc_status,
+        nodeclass_termination=nc_term,
         manager=manager,
         events=recorder,
         obs=obs_bundle,

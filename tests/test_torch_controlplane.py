@@ -22,9 +22,10 @@ scheduling decides the order in which claims are named. Every step asserts
 """
 
 import re
-import types
 
 import pytest
+
+from karpenter_provider_aws_tpu_torch.ops import cluster_cases
 
 PACKAGES = ("karpenter_provider_aws_tpu", "karpenter_provider_aws_tpu_torch")
 
@@ -40,19 +41,19 @@ def package(root: str):
     models = mod("models")
     cp = mod("cloudprovider.cloudprovider")
     port = root.endswith("_torch")
-    return types.SimpleNamespace(
+    P = cluster_cases.names(mod)
+    P.__dict__.update(
         root=root,
         new_environment=(lambda: testenv.new_environment(device="cpu")) if port
         else testenv.new_environment,
-        NodePool=models.NodePool, Operator=models.Operator, Requirement=models.Requirement,
-        Limits=models.Limits, Disruption=models.Disruption, lbl=mod("models.labels"),
-        NodeClass=mod("models.nodeclass").NodeClass,
+        Limits=models.Limits, NodeClass=mod("models.nodeclass").NodeClass,
         SelectorTerm=mod("models.nodeclass").SelectorTerm,
-        make_pods=mod("models.pod").make_pods,
         launch_claim=mod("controllers.provisioning").launch_claim,
         NodeSpec=mod("scheduling.solver").NodeSpec,
-        DriftReason=cp.DriftReason, MANAGED_TAG=cp.MANAGED_TAG,
+        DriftReason=cp.DriftReason, Budget=models.Budget, Taint=models.Taint,
+        LaunchRequest=mod("fake").LaunchRequest,
     )
+    return P
 
 
 @pytest.fixture(autouse=True)
@@ -98,6 +99,27 @@ def observe(env) -> dict:
         "decisions": [(r.kind, r.subject_kind, norm(r.decision))
                       for r in env.obs.audit.tail(100_000)],
     }
+
+
+def run_on_both(scenario, observe_fn=None) -> dict:
+    """``scenario(P, env)`` on a fresh environment of each package; the
+    observations by package."""
+    seen = {}
+    for root in PACKAGES:
+        P = package(root)
+        env = P.new_environment()
+        try:
+            scenario(P, env)
+            seen[root] = (observe_fn or cluster_cases.observe_lifecycle)(env)
+        finally:
+            env.close()
+    return seen
+
+
+def assert_same(seen: dict) -> None:
+    want, got = seen[PACKAGES[0]], seen[PACKAGES[1]]
+    for key in want:
+        assert got[key] == want[key], key
 
 
 # -- the scenarios: each takes (P, env), asserts the reference test's checks ---
@@ -342,6 +364,107 @@ SCENARIOS = [pending_pods_become_running_nodes, pods_bound_to_their_nominated_no
              fragmented_burst]
 
 
+# -- garbage collection, liveness, tagging, nodeclass termination ------------
+
+def orphan_reaped_after_grace(P, env):
+    env.apply_defaults(cmr_pool(P))
+    inst = env.cloud.create_fleet([P.LaunchRequest(
+        instance_type_options=["c5.large"], offering_options=[("zone-a", "on-demand")],
+        image_id="img-std-2", tags={P.MANAGED_TAG: "true"})])[0]
+    env.garbagecollection.reconcile()
+    assert env.cloud.instances[inst.id].state == "running"  # inside grace
+    env.clock.advance(31)
+    env.garbagecollection.reconcile()
+    assert env.cloud.instances[inst.id].state == "terminated"
+    assert env.garbagecollection.reaped == [inst.id]
+
+
+def claimed_instance_not_reaped(P, env):
+    env.apply_defaults(cmr_pool(P))
+    for p in P.make_pods(5, "w", {"cpu": "1", "memory": "2Gi"}):
+        env.cluster.apply(p)
+    step(env, 2)
+    env.clock.advance(3600)
+    env.garbagecollection.reconcile()
+    for claim in env.cluster.nodeclaims.values():
+        assert env.cloudprovider.get(claim.status.provider_id).state == "running"
+
+
+def unregistered_claim_reaped_after_ttl(P, env):
+    pool, _ = env.apply_defaults(cmr_pool(P))
+    spec = P.NodeSpec(nodepool_name=pool.name, instance_type_options=["c5.large"],
+                      zone_options=["zone-a"], capacity_type_options=["on-demand"],
+                      offering_options=[("zone-a", "on-demand")])
+    claim = P.launch_claim(env.cluster, env.cloudprovider, pool, spec)
+    assert claim is not None and claim.is_launched()
+    env.liveness.reconcile()  # the registration controller is not run
+    assert not claim.deleted
+    env.clock.advance(15 * 60 + 1)
+    env.liveness.reconcile()
+    assert claim.deleted and claim.name in env.liveness.reaped
+    evs = env.events.events(kind="NodeClaim", reason="FailedRegistration")
+    assert evs and claim.name == evs[0].name
+    step(env, 2)
+    inst = env.cloud.instances[claim.status.provider_id.rsplit("/", 1)[-1]]
+    assert inst.state == "terminated"
+
+
+def registered_claim_untouched(P, env):
+    env.apply_defaults(cmr_pool(P))
+    for p in P.make_pods(2, "w", {"cpu": "1", "memory": "2Gi"}):
+        env.cluster.apply(p)
+    step(env, 2)
+    env.clock.advance(16 * 60)
+    env.liveness.reconcile()
+    assert env.liveness.reaped == []
+    assert all(not c.deleted for c in env.cluster.nodeclaims.values())
+
+
+def instances_tagged_once_registered(P, env):
+    env.apply_defaults(cmr_pool(P))
+    for p in P.make_pods(3, "w", {"cpu": "1", "memory": "2Gi"}):
+        env.cluster.apply(p)
+    step(env, 2)
+    for claim in env.cluster.nodeclaims.values():
+        inst = env.cloudprovider.get(claim.status.provider_id)
+        assert inst.tags.get("Name") == claim.status.node_name
+        assert claim.annotations[P.lbl.ANNOTATION_INSTANCE_TAGGED] == "true"
+    calls = len(env.cloud.calls.get("tag_instance", []))
+    env.tagging.reconcile()  # a second pass is a no-op
+    assert len(env.cloud.calls.get("tag_instance", [])) == calls
+
+
+def termination_blocked_by_claims_then_completes(P, env):
+    env.apply_defaults(cmr_pool(P))
+    for p in P.make_pods(2, "w", {"cpu": "1", "memory": "2Gi"}):
+        env.cluster.apply(p)
+    step(env, 2)
+    env.cluster.delete(env.cluster.nodeclasses["default"])
+    env.nodeclass_termination.reconcile()
+    assert "default" in env.cluster.nodeclasses  # blocked by claims
+    for claim in list(env.cluster.nodeclaims.values()):
+        env.cluster.finalize(claim)
+    env.nodeclass_termination.reconcile()
+    assert "default" not in env.cluster.nodeclasses
+    assert "cluster-1-default" not in env.cloud.instance_profiles
+
+
+LIFECYCLE = [orphan_reaped_after_grace, claimed_instance_not_reaped,
+             unregistered_claim_reaped_after_ttl, registered_claim_untouched,
+             instances_tagged_once_registered, termination_blocked_by_claims_then_completes]
+
+
+@pytest.mark.parametrize("lane", ["off", "on"])
+@pytest.mark.parametrize("scenario", LIFECYCLE, ids=lambda f: f.__name__)
+def test_lifecycle_scenario_equals_reference(scenario, lane, monkeypatch):
+    """The reference's ``TestGC``, ``TestLiveness``, ``TestTagging`` and
+    nodeclass termination, run through the environment's controllers on
+    both packages: the reference test's checks on each, and the runs equal
+    with claim and instance names in order of creation."""
+    monkeypatch.setenv("KARPENTER_TPU_OPTIMIZER", "1" if lane == "on" else "0")
+    assert_same(run_on_both(scenario))
+
+
 @pytest.mark.parametrize("lane", ["off", "on"])
 @pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda f: f.__name__)
 def test_scenario_equals_reference(scenario, lane, monkeypatch):
@@ -377,19 +500,28 @@ def test_new_environment_defaults_to_the_card():
 
 
 def test_uncarried_controllers_raise():
-    from karpenter_provider_aws_tpu_torch.testenv import NOT_CARRIED, new_environment
+    """Every controller of the reference's environment is carried, in the
+    reference's order; the replica set is not, and asking for it raises."""
+    from karpenter_provider_aws_tpu_torch import testenv
 
-    env = new_environment(device="cpu")
+    env = testenv.new_environment(device="cpu")
     try:
-        for name in NOT_CARRIED:
-            with pytest.raises(NotImplementedError, match=name):
-                getattr(env, name)
+        for name in ("provisioning", "scheduling", "registration", "termination",
+                     "disruption", "interruption", "garbagecollection", "liveness",
+                     "tagging", "nodeclass_hash", "nodeclass_status",
+                     "nodeclass_termination"):
+            assert getattr(env, name).reconcile
         health = env.manager.health()
-        assert list(health["controllers"]) == ["nodeclass-status", "nodeclass-hash",
-                                               "registration", "scheduling", "provisioning"]
+        assert list(health["controllers"]) == [
+            "nodeclass-status", "nodeclass-hash", "interruption", "termination",
+            "registration", "scheduling", "provisioning", "tagging", "disruption",
+            "garbagecollection", "liveness", "nodeclass-termination"]
         assert "breakers" not in health
+        assert env.disruption.device == env.solver.device
     finally:
         env.close()
+    with pytest.raises(NotImplementedError, match="replica set"):
+        testenv.new_replicaset(2)
 
 
 def test_gang_bound_and_partition_are_refused():

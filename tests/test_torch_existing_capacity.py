@@ -25,6 +25,7 @@ from test_torch_controlplane import PACKAGES, cmr_pool, observe, package, step
 from test_torch_solver import _plan
 
 from karpenter_provider_aws_tpu_torch.interop import cluster_from_reference
+from karpenter_provider_aws_tpu_torch.ops import cluster_cases
 
 
 @pytest.fixture(autouse=True)
@@ -185,7 +186,15 @@ def reference_snapshot(cluster) -> dict:
                                         for r in p.requirements],
                        "labels": p.labels, "annotations": p.annotations,
                        "taints": [(t.key, t.value, t.effect) for t in p.taints],
-                       "weight": p.weight} for p in cluster.nodepools.values()],
+                       "weight": p.weight,
+                       "disruption": {
+                           "consolidation_policy": p.disruption.consolidation_policy,
+                           "consolidate_after_s": p.disruption.consolidate_after_s,
+                           "expire_after_s": p.disruption.expire_after_s,
+                           "budgets": [b if isinstance(b, str) else
+                                       (b.nodes, b.reasons, b.schedule, b.duration_s)
+                                       for b in p.disruption.budgets]}}
+                      for p in cluster.nodepools.values()],
         "nodeclasses": [{"name": nc.name, "role": nc.role}
                         for nc in cluster.nodeclasses.values()],
         "claims": [{"name": c.name, "nodepool_name": c.nodepool_name,
@@ -209,46 +218,10 @@ def reference_snapshot(cluster) -> dict:
     }
 
 
-def add_node(P, cluster, catalog, i, it, zone, captype="spot"):
-    """One launched, registered, ready node of the default pool and its
-    claim, as ``benchmarks/solve_configs.py``'s ``_synth_cluster`` makes
-    them."""
-    claim = P.NodeClaim.fresh(nodepool_name="default", nodeclass_name="default",
-                              instance_type_options=[it.name], zone_options=[zone],
-                              capacity_type_options=[captype])
-    claim.status.provider_id = f"cloud:///{zone}/i-bench{i}"
-    claim.status.capacity = it.capacity()
-    claim.status.allocatable = catalog.allocatable(it)
-    claim.labels.update(it.labels())
-    claim.labels[P.lbl.TOPOLOGY_ZONE] = zone
-    claim.labels[P.lbl.CAPACITY_TYPE] = captype
-    claim.labels[P.lbl.NODEPOOL] = "default"
-    for cond in ("Launched", "Registered", "Initialized"):
-        claim.status.set_condition(cond, True)
-    cluster.apply(claim)
-    node = P.Node(name=f"node-{claim.name}", provider_id=claim.status.provider_id,
-                  nodepool_name="default", nodeclaim_name=claim.name,
-                  labels=dict(claim.labels), capacity=claim.status.capacity,
-                  allocatable=claim.status.allocatable, ready=True)
-    node.labels[P.lbl.HOSTNAME] = node.name
-    claim.status.node_name = node.name
-    cluster.apply(node)
-    return claim, node
-
-
 def config7_cluster(P, env, n_nodes, pods_per_node=6, seed=1):
     """``config7_steady_state``'s live cluster (``_synth_cluster`` with 6
     pods a node at most) in ``env``'s store."""
-    rng = np.random.RandomState(seed)
-    types = [t for t in env.catalog.list() if t.category in ("c", "m") and 4 <= t.vcpus <= 16]
-    for i in range(n_nodes):
-        it = types[rng.randint(len(types))]
-        zone = env.catalog.zones[rng.randint(len(env.catalog.zones))]
-        _, node = add_node(P, env.cluster, env.catalog, i, it, zone)
-        for p in P.make_pods(rng.randint(1, pods_per_node + 1), f"p{i}",
-                             {"cpu": "250m", "memory": "512Mi"}):
-            env.cluster.apply(p)
-            env.cluster.bind_pod(p.uid, node.name)
+    cluster_cases.synth_cluster(P, env.cluster, env.catalog, n_nodes, pods_per_node, seed)
 
 
 def _rows(rows) -> list:

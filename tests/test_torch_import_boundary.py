@@ -90,3 +90,12 @@ def test_the_consolidation_pass_modules_are_covered():
     for name in ("market", "market.offerings", "ops.encode_delta", "ops.device_state",
                  "state.cluster", "catalog.pricing"):
         assert f"karpenter_provider_aws_tpu_torch.{name}" in modules, name
+
+
+def test_the_disruption_half_modules_are_covered():
+    modules = _modules()
+    for name in ("controllers.disruption", "controllers.interruption",
+                 "controllers.termination", "controllers.garbagecollection",
+                 "controllers.liveness", "controllers.tagging",
+                 "controllers.nodeclass_termination", "ops.cluster_cases", "testenv"):
+        assert f"karpenter_provider_aws_tpu_torch.{name}" in modules, name
