@@ -5,7 +5,9 @@
 It drives the package's paths: the provisioning solve (the FFD kernel), with
 the market on in phase 11, the consolidation screen (the repack kernel), the
 consolidation pass under churn (phase 10), the provisioning control plane
-(phase 13) and its disruption half (phases 14-15). Phases, each printing one
+(phase 13), its disruption half (phases 14-15) and the scale tier (phases
+16-17: the partition router, the partitioned encode, one repack launch a
+partition, partition lanes of the FFD kernel). Phases, each printing one
 JSON line (any failure exits non-zero):
   1. probe   — device name, compute capability (must be 9.0), nvidia-smi;
   2. build   — compile every kernel under karpenter_provider_aws_tpu_torch/csrc
@@ -21,7 +23,11 @@ JSON line (any failure exits non-zero):
                beside pre-opened rows, the global-memory branch at 20,480
                rows, T = 2,048, a zero-request group), the headline at
                8,192 rows and config8's encoded problem (integers exact,
-               floats to rtol 1e-6 / atol 1e-3);
+               floats to rtol 1e-6 / atol 1e-3); and partition lanes
+               (``ffd_cases.lanes_pre_opened``: 3 lanes of T = 40 / 64 / 25
+               types from 0 / 300 / 2,000 pre-opened rows, 4,096 rows, in
+               one launch) against each lane's plain solve, its solo launch
+               and the CPU's lanes;
   4. main    — TorchSolver().solve on the headline problem (50,000 pods in
                64 shapes, seed 0, one pool of c/m/r, the real catalog), which
                must launch the kernel, place every pod, and give the same plan
@@ -81,7 +87,8 @@ JSON line (any failure exits non-zero):
                the device's idle share of a light pass;
   11. market — config5 (two reservations, a MarketModel(seed=0), the
                market on) through TorchSolver() on the card: the plan equals
-               the CPU solve's, the FFD kernel launched, reserved nodes used;
+               the CPU solve's, one FFD launch of 2 lanes (a lane a pool),
+               reserved nodes used;
   12. optimizer — the optimizer lane, the default solve (phases 3-11 run
                with KARPENTER_TPU_OPTIMIZER=0, so their checks stay what
                they were): ``optimizer_solves``, TorchSolver() lane on
@@ -159,6 +166,31 @@ JSON line (any failure exits non-zero):
                ``config6_multi_replace_optimizer``'s seeds 0-11 (host work):
                cost over the prefix walk's, p95 must be the reference's
                0.3321;
+  16. scale_config9 — config9 (``benchmarks/scale_bench.py``: 100,000 c/m
+               nodes of 1-4 pods, RandomState(1), four (default, zone)
+               partitions) in ``new_environment()``'s store, the partitioned
+               encode reached through the ``auto`` switch: the cold encode,
+               a hit, 10 passes of 1% node churn (RandomState(23), every one
+               incremental: p50 / p99), the merged emission canonical-equal
+               to a fresh global encode; the partitioned screen (4 repack
+               launches, each partition's mask held to the plain version on
+               its mirror's CUDA tensors, the merged mask to the CPU's; one
+               partition's sweep and all four's, the kernels' times at the
+               largest partition); the per-zone burst (1,000 pods, 250 a
+               zone) as ONE FFD launch of 4 lanes of 256 rows, each lane held
+               to its plain solve, its solo launch and the CPU, and
+               ``merge_partition_plans``' cost_lanes / cost_merged with every
+               pod kept; peak device memory (three lines: ``scale_config9``,
+               ``scale_config9_screen``, ``scale_config9_lanes``);
+  17. controlplane_partitioned — one disruption pass over 12,000 of
+               config4's nodes in four partitions (the pool consolidating
+               under a 10% budget): one repack launch a partition, and the
+               card's pass equal to the CPU's (claims disrupted, the whole
+               audit trail); config5 (market on) through TorchSolver(): ONE
+               FFD launch of 2 lanes, its plan the CPU's and the one-by-one
+               solve's (2 launches); the cramped cross-partition case:
+               every zone-a node passes the whole screen and fails the
+               partitioned one;
 then the kernels line, the card's name and power limit, and the result line.
 It needs the repository's package beside it and a CUDA device; without
 either it prints no result and exits 2.
@@ -1003,8 +1035,9 @@ def market_phase(smi: str, n_pods: int = 4000) -> int:
     """Phase 11: config5 (``benchmarks/solve_configs.py``
     ``config5_accelerators``: GPU, Neuron and cpu pods, two pools, two
     reservations) solved through ``TorchSolver()`` on the card with the
-    market on and a ``MarketModel(seed=0)``; the plan must equal the CPU
-    solve's on the same market. Returns the FFD kernel's launches."""
+    market on and a ``MarketModel(seed=0)``, its two pools as partition
+    lanes (ONE FFD launch of 2 lanes); the plan must equal the CPU solve's
+    on the same market. Returns the FFD kernel's launches."""
     from karpenter_provider_aws_tpu_torch.models import NodePool, Operator, Requirement
     from karpenter_provider_aws_tpu_torch.models import labels as lbl
     from karpenter_provider_aws_tpu_torch.models.pod import make_pods
@@ -1019,14 +1052,15 @@ def market_phase(smi: str, n_pods: int = 4000) -> int:
     pods = solve_cases.config5_pods(pkg, n_pods)
     catalog = market_catalog()
     frag = catalog._market_fragment()
-    ffd_cuda.LAUNCHES = 0
+    ffd_cuda.LAUNCHES = ffd_cuda.LANES = 0
     t0 = time.perf_counter()
     res = TorchSolver().solve(pods, pools, catalog)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = ffd_cuda.LAUNCHES
-    if launches < 1:
-        raise AssertionError("the config5 market solve never launched the FFD kernel")
+    launches, lanes = ffd_cuda.LAUNCHES, ffd_cuda.LANES
+    if (launches, lanes) != (1, 2):
+        raise AssertionError(f"the config5 market solve ran {launches} FFD launches of "
+                             f"{lanes} lanes, not one launch of a lane a pool")
     same_plan(res, TorchSolver(device="cpu").solve(pods, pools, market_catalog()),
               "config5 with the market on")
     reserved = [s for s in res.node_specs if lbl.CAPACITY_TYPE_RESERVED in s.capacity_type_options]
@@ -1037,7 +1071,7 @@ def market_phase(smi: str, n_pods: int = 4000) -> int:
     emit({"phase": "market", "pods": len(pods), "placed": res.pods_placed(),
           "nodes": len(res.node_specs), "reserved_option_nodes": len(reserved),
           "cost": res.total_cost, "cpu_plan_equal": True, "launches": launches,
-          "market_fragment": [list(map(str, f)) for f in frag], "wall_ms": wall_ms,
+          "lanes": lanes, "market_fragment": [list(map(str, f)) for f in frag], "wall_ms": wall_ms,
           "card": smi})
     return launches
 
@@ -1831,6 +1865,407 @@ def disruption_phase(smi: str) -> dict:
             "config4_ffd": run4["ffd_launches"], "interruption_ffd": run15["ffd_launches"]}
 
 
+#: the scale tier's cells: config9 (``benchmarks/scale_bench.py``
+#: ``bench_scale``: 100,000 nodes, 1% node churn a pass, 10 passes, the burst
+#: as lanes of 256 rows) and the disruption pass over four partitions
+CONFIG9_CHURN_PASSES, CONFIG9_LANE_ROWS = 10, 256
+PARTITIONED_NODES = 12_000
+
+
+def partition_lane_check(args, init, n_pres, N, what: str) -> dict:
+    """Partition lanes (``parallel.mesh.solve_partition_lanes``: the lanes
+    of ``stack_lane_problems``, each from its own pre-opened rows, in ONE
+    launch) against each lane's plain solve and its solo kernel launch on
+    the same CUDA tensors and against the CPU's lanes; then the launch's
+    times (the whole ``ffd_solve_lanes`` call by CUDA events, the kernel's
+    device time from the profiler, lane 0 alone) and the bound for all
+    lanes' bytes and operations."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd, ffd_cuda
+    from karpenter_provider_aws_tpu_torch.parallel import mesh
+
+    K = len(n_pres)
+    ffd_cuda.LAUNCHES = ffd_cuda.LANES = 0
+    got, t = mesh.solve_partition_lanes(args, init, n_pres, N)
+    torch.cuda.synchronize()
+    if (ffd_cuda.LAUNCHES, ffd_cuda.LANES) != (1, K):
+        raise AssertionError(f"{what}: {ffd_cuda.LAUNCHES} launches of {ffd_cuda.LANES} lanes")
+    cpu, _ = mesh.solve_partition_lanes(args, init, n_pres, N, device="cpu")
+    state = mesh.lane_state(init, "cuda")
+    err, nbytes, ops, n_open = 0.0, 0, 0, []
+    for k in range(K):
+        one = {f: t[f][k] for f in FFD_FIELDS}
+        st = ffd._State(*(f[k] for f in state))
+        mine = type(got)(*(f[k] for f in got))
+        err = max(err, compare(f"{what} lane {k}", mine, call(ffd.ffd_solve, one, N, st,
+                                                              n_pres[k])))
+        compare(f"{what} lane {k} solo", mine, call(ffd_cuda.ffd_solve, one, N, st, n_pres[k]))
+        compare(f"{what} lane {k} CPU", mine, type(cpu)(*(f[k].to(got.used.device) for f in cpu)))
+        b, o = kernel_bytes_and_ops(one, N, mine, n_pres[k])
+        nbytes, ops, n_open = nbytes + b, ops + o, n_open + [int(mine.n_open)]
+    n_pre_t = torch.tensor(n_pres, dtype=torch.int32, device="cuda")
+
+    def lanes():
+        return ffd_cuda.ffd_solve_lanes(*(t[f] for f in mesh.LANE_FIELDS), max_nodes=N,
+                                        init_state=state, n_pre=n_pre_t)
+
+    lanes_dev, lanes_kept = device_ms(lanes, ("ffd_kernel",), 20)
+    lane0 = {f: t[f][0] for f in FFD_FIELDS}
+    st0 = ffd._State(*(f[0] for f in state))
+    one_dev, one_kept = device_ms(lambda: call(ffd_cuda.ffd_solve, lane0, N, st0, n_pres[0]),
+                                  ("ffd_kernel",), 20)
+    (G, R), T = t["requests"].shape[1:], t["capacity"].shape[1]
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    return {
+        "N": N, "G": G, "T": T, "R": R, "lanes": K, "n_pre": list(n_pres),
+        "resident": ffd_cuda.resident(N, R), "active_ctas": ffd_cuda.active_ctas(N, R),
+        "clusters_at_once": ffd_cuda.cluster_occupancy(N, R), "n_open": n_open,
+        "placed": int(got.placed.sum()), "unplaced": int(got.unplaced.sum()),
+        "parity": "exact", "max_abs_err": err, "cpu_equal": True, "solo_equal": True,
+        "lanes_call_ms": time_cuda(lanes, runs=20),
+        "plain_ms": time_cuda(lambda: ffd.ffd_solve_lanes(
+            *(t[f] for f in mesh.LANE_FIELDS), max_nodes=N, init_state=state, n_pre=n_pre_t),
+            runs=3, warmup=1),
+        "lanes_device_ms": lanes_dev["ffd_kernel"], "lanes_records": lanes_kept,
+        "single_lane_device_ms": one_dev["ffd_kernel"], "single_lane_records": one_kept,
+        "bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+
+
+def _sweep_ms(ct, parts=()) -> float:
+    """One screen of ``ct`` with its mask memo (and its partitions') dropped:
+    the wall of dispatch and wait."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidate
+
+    for c in (ct, *parts):
+        c.__dict__.pop("_screen_mask_memo", None)
+    t0 = time.perf_counter()
+    consolidate.dispatch_screen(ct).wait()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def scale_phase(smi: str) -> dict:
+    """Phase 16, ``scale_config9``: config9's 100,000 nodes in a
+    ``new_environment()`` store, the partitioned encode reached through the
+    ``auto`` switch; the cold encode, a hit, 10 passes of 1% node churn
+    (every one incremental), the merged emission against a fresh global
+    encode; the partitioned screen (one repack launch a partition, each
+    partition's mask held to the plain version on its mirror's CUDA
+    tensors, the merged mask to the CPU's); the per-zone burst as ONE FFD
+    launch of 4 lanes and the cross-partition merge. Returns the launches
+    and the shapes' times for the kernels line."""
+    import gc
+
+    from karpenter_provider_aws_tpu_torch.ops import (
+        cluster_cases, consolidate, device_state, encode_delta, ffd_cuda, repack_cuda,
+    )
+    from karpenter_provider_aws_tpu_torch.ops.encode import pad_problem
+    from karpenter_provider_aws_tpu_torch.parallel import mesh
+    from karpenter_provider_aws_tpu_torch.testenv import new_environment
+
+    for var in ("KARPENTER_TPU_PARTITION_ENCODE", "KARPENTER_TPU_PARTITION_MIN_NODES",
+                "KARPENTER_TPU_PARTITION_SCREEN", "KARPENTER_TPU_PARTITION_SOLVE"):
+        os.environ.pop(var, None)  # the defaults: "auto" at 8,192 nodes
+    torch.cuda.reset_peak_memory_stats()
+    pkg = port_pkg()
+    t0 = time.perf_counter()
+    env = new_environment()
+    env.apply_defaults(cmr_pool())
+    cluster_cases.config9_cluster(pkg, env.cluster, env.catalog, name=lambda i: f"c9-{i:x}")
+    build_s = time.perf_counter() - t0
+    cl, catalog = env.cluster, env.catalog
+    keys = cl.partition_keys()
+    churn = len(cl.nodes) // 100
+    rng = np.random.RandomState(23)
+    names = [n.name for n in cl.snapshot_nodes()]
+    gc.collect()
+    gc.freeze()
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        ct = consolidate.encode_cluster(cl, catalog)
+        full_ms = (time.perf_counter() - t0) * 1e3
+        cold = dict(encode_delta.LAST_ENCODE)
+        parts = ct.__dict__.get("_partitions") or []
+        if len(parts) != len(keys) or len(keys) < 2 or "partitions" not in cold:
+            raise AssertionError(f"config9 did not encode by partition: {len(parts)} parts "
+                                 f"of {len(keys)} keys, {cold}")
+        t0 = time.perf_counter()
+        if consolidate.encode_cluster(cl, catalog) is not ct:
+            raise AssertionError("an unchanged pass did not return the same tensors")
+        hit_ms = (time.perf_counter() - t0) * 1e3
+        patch_ms, outcomes = [], []
+        for it in range(CONFIG9_CHURN_PASSES):
+            for _ in range(churn):
+                if rng.rand() < 0.5:
+                    p = pkg.make_pods(1, f"sc{it}", {"cpu": "250m", "memory": "512Mi"})[0]
+                    cl.apply(p)
+                    cl.bind_pod(p.uid, names[rng.randint(len(names))])
+                else:
+                    bound = [pp for pp in list(cl.pods.values())[:512] if pp.node_name]
+                    if bound:
+                        cl.unbind_pod(bound[rng.randint(len(bound))].uid)
+            t0 = time.perf_counter()
+            ct = consolidate.encode_cluster(cl, catalog)
+            patch_ms.append((time.perf_counter() - t0) * 1e3)
+            outcomes.append(dict(encode_delta.LAST_ENCODE))
+        if any(o["mode"] != "patch" or "full" in o["partitions"].values() for o in outcomes):
+            raise AssertionError(f"a churn pass was not incremental: {outcomes}")
+        t0 = time.perf_counter()
+        fresh = consolidate._encode_cluster(cl, catalog, consolidate.GMAX_DEFAULT)
+        global_ms = (time.perf_counter() - t0) * 1e3
+        diffs = encode_delta.canonical_equal(encode_delta.canonical_form(ct),
+                                             encode_delta.canonical_form(fresh))
+        if diffs:
+            raise AssertionError(f"the merged emission differs from a global encode: {diffs}")
+        fresh = None
+    finally:
+        gc.enable()
+        gc.unfreeze()
+    parts = ct.__dict__["_partitions"]
+    emit({"phase": "scale_config9", "benchmark": "config9_100k_nodes", "nodes": len(cl.nodes),
+          "pods": len(cl.pods), "partitions": len(parts),
+          "per_partition": {"/".join(k): n for k, _c, _o, n in parts},
+          "build_s": build_s, "full_encode_ms": full_ms, "cold_outcome": cold,
+          "hit_ms": hit_ms, "churn_nodes_per_pass": churn, "passes": CONFIG9_CHURN_PASSES,
+          "patch_p50_ms": _pct(patch_ms, 50), "patch_p99_ms": _pct(patch_ms, 99),
+          "patch_ms": patch_ms, "pass_outcomes": [o["partitions"] for o in outcomes],
+          "steady_state_incremental": True, "global_encode_ms": global_ms,
+          "canonical_equal": True, "card": smi})
+
+    # the partitioned screen on the card: one repack launch a partition
+    repack_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    mask = consolidate.dispatch_screen(ct).wait()
+    screen_first_ms = (time.perf_counter() - t0) * 1e3
+    repack_launches = repack_cuda.LAUNCHES
+    screen = dict(consolidate.LAST_SCREEN)
+    if repack_launches != len(parts) or screen["backend"] != "partitioned(cuda-repack)":
+        raise AssertionError(f"{repack_launches} repack launches for {len(parts)} partitions, "
+                             f"{screen['backend']}")
+    per_part, repack_err = [], 0.0
+    for key, pct, off, n in parts:
+        free, req, gids, gcnt, cap, cand, n_live = \
+            device_state.mirror_for(pct, "cuda").arrays()
+        got = repack_cuda.repack_check(free, req, gids, gcnt, cap, cand)
+        want = consolidate.repack_check(free, req, gids, gcnt, cap, cand)
+        repack_err = max(repack_err, float((got.to(torch.int32) - want.to(torch.int32))
+                                           .abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"{key}: the repack kernel and the plain version differ on "
+                                 f"{int((got != want).sum())} of {n} nodes")
+        if not np.array_equal(got.cpu().numpy() & ~pct.blocked, mask[off:off + n]):
+            raise AssertionError(f"{key}: the partition's mask is not the kernel's")
+        per_part.append({"partition": "/".join(key), "nodes": n, "mirror_rows": int(free.shape[0]),
+                         "S": int(gids.shape[1]), "passed": int(mask[off:off + n].sum())})
+    t0 = time.perf_counter()
+    cpu_mask = consolidate.consolidatable(ct, device="cpu")
+    cpu_screen_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(mask, cpu_mask):
+        raise AssertionError("the card's partitioned mask differs from the CPU's")
+    biggest = max(parts, key=lambda p: p[3])
+    one_ms = statistics.median(_sweep_ms(biggest[1]) for _ in range(5))
+    all_ms = statistics.median(_sweep_ms(ct, [p[1] for p in parts]) for _ in range(3))
+    rt = list(device_state.mirror_for(biggest[1], "cuda").arrays()[:6])
+    work = repack_bytes_and_ops(rt)
+    rtimes = repack_times(repack_cuda, rt)
+    partition_timing = {
+        "partition": "/".join(biggest[0]), "N": int(rt[0].shape[0]), "C": int(rt[5].shape[0]),
+        "S": int(rt[2].shape[1]), **rtimes,
+        "plain_ms": time_cuda(lambda: consolidate.repack_check(*rt), runs=3, warmup=1),
+        **work, "bound_ms": max(work["bytes_ms"], work["ops_ms"]),
+        "bound_by": "bytes" if work["bytes_ms"] >= work["ops_ms"] else "operations"}
+    emit({"phase": "scale_config9_screen", "launches": repack_launches,
+          "first_ms": screen_first_ms, "partitions": per_part,
+          "residency": [s.get("residency") for s in screen["part_screens"]],
+          "passed": int(mask.sum()), "parity": "exact", "max_abs_err": repack_err,
+          "cpu_mask_equal": True, "cpu_screen_ms": cpu_screen_ms,
+          "screen_partition_ms": one_ms, "screen_all_partitions_ms": all_ms,
+          "partition_timing": partition_timing, "card": smi})
+
+    # the per-zone burst: ONE launch of one lane a zone, then the merge
+    zones = sorted({z for _p, z in keys})
+    problems = cluster_cases.zone_bursts(pkg, catalog, zones, cl.nodepools["default"])
+    GB = max(p.requests.shape[0] for p in problems)
+    args, (_TB, ZB) = mesh.stack_lane_problems([pad_problem(p, GB) for p in problems])
+    init, n_pres = mesh.stack_lane_states([None] * len(problems), CONFIG9_LANE_ROWS,
+                                          args["requests"].shape[2], ZB,
+                                          args["group_window"].shape[3])
+    burst = partition_lane_check(args, init, n_pres, CONFIG9_LANE_ROWS, "config9 burst")
+    walls = []
+    for _ in range(5):
+        ffd_cuda.LAUNCHES = ffd_cuda.LANES = 0
+        t0 = time.perf_counter()
+        res, _t = mesh.solve_partition_lanes(args, init, n_pres, CONFIG9_LANE_ROWS)
+        plans = mesh.lane_plans(problems, res)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        ffd_launches, ffd_lanes = ffd_cuda.LAUNCHES, ffd_cuda.LANES
+    t0 = time.perf_counter()
+    merged = mesh.merge_partition_plans(problems, plans)
+    merge_ms = (time.perf_counter() - t0) * 1e3
+    total = sum(int(p.counts[:len(p.group_pods)].sum()) for p in problems)
+    kept = int(merged["placed"][:, ~merged["dropped"]].sum())
+    if kept != total or merged["cost_merged"] > merged["cost_lanes"] + 1e-6:
+        raise AssertionError(f"the merge kept {kept} of {total} pods, cost "
+                             f"{merged['cost_merged']} over {merged['cost_lanes']}")
+    emit({"phase": "scale_config9_lanes",
+          "burst": {"pods": total, "lanes": len(problems), "launches": ffd_launches,
+                    "solve_lanes_ms": statistics.median(walls), **burst},
+          "merge": {"merge_ms": merge_ms, "cost_lanes": merged["cost_lanes"],
+                    "cost_merged": merged["cost_merged"], "nodes_lanes": int(merged["n_open"]),
+                    "nodes_dropped": int(merged["dropped"].sum()), "pods_kept": kept},
+          "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
+          "lanes_mode": mesh.lanes_mode(), "card": smi})
+    env.close()
+    return {"repack_launches": repack_launches, "ffd_launches": ffd_launches,
+            "ffd_lanes": ffd_lanes, "burst": burst, "partition_timing": partition_timing}
+
+
+def partitioned_env(device=None):
+    """config4's builder at 12,000 nodes over the catalog's four zones (one
+    (default, zone) partition each, above the 8,192-node threshold) in a
+    fresh environment, each claim launched as ``config4_env``'s are."""
+    from karpenter_provider_aws_tpu_torch.ops import cluster_cases
+    from karpenter_provider_aws_tpu_torch.testenv import new_environment
+
+    pkg = port_pkg()
+    env = new_environment(device=device, audit_capacity=AUDIT_CAPACITY)
+    env.apply_defaults(cmr_pool())
+    cluster_cases.synth_cluster(pkg, env.cluster, env.catalog, PARTITIONED_NODES,
+                                CONFIG4_PODS_PER_NODE, name=lambda i: f"c4p-{i:x}")
+    cluster_cases.seed_launched(pkg, env)
+    return env
+
+
+def controlplane_partitioned(device=None) -> tuple:
+    """One disruption-controller pass over ``partitioned_env``'s 12,000
+    nodes (the pool consolidating after 60 s under a 10% budget, the clock
+    120 s on): the partitioned encode and one repack launch a partition.
+    Returns the observation and the pass's numbers."""
+    from karpenter_provider_aws_tpu_torch.ops import (
+        cluster_cases, consolidate, encode_delta, repack_cuda,
+    )
+
+    t0 = time.perf_counter()
+    env = partitioned_env(device)
+    build_s = time.perf_counter() - t0
+    pool = env.cluster.nodepools["default"]
+    pool.disruption.consolidate_after_s = 60
+    pool.disruption.budgets = ["10%"]
+    env.clock.advance(120)
+    repack_cuda.LAUNCHES = 0
+    consolidate.LAST_SCREEN.clear()
+    t0 = time.perf_counter()
+    with gc_pauses() as paused:
+        env.disruption.reconcile()
+    pass_ms = (time.perf_counter() - t0) * 1e3
+    if env.manager.errors:
+        raise AssertionError(f"reconcile errors: {env.manager.errors}")
+    screen = dict(consolidate.LAST_SCREEN)
+    run = {"build_s": build_s, "nodes": len(env.cluster.nodes), "pods": len(env.cluster.pods),
+           "partitions": len(env.cluster.partition_keys()),
+           "controller_pass_ms": pass_ms, "gc_ms": paused[0],
+           "split_ms": dict(env.disruption.timings),
+           "encode": {k: v for k, v in encode_delta.LAST_ENCODE.items()},
+           "screen": {k: v for k, v in screen.items() if k != "part_screens"},
+           "part_screens": screen.get("part_screens"),
+           "disrupted": len(env.disruption.disrupted),
+           "reasons": sorted({r.split(":")[0] for _, r in env.disruption.disrupted}),
+           "repack_launches": repack_cuda.LAUNCHES}
+    out = cluster_cases.observe_lifecycle(env)
+    env.close()
+    return out, run
+
+
+def partitioned_phase(smi: str) -> dict:
+    """Phase 17, ``controlplane_partitioned``: one disruption pass over
+    12,000 of config4's nodes in four partitions on the card and the CPU
+    (the same claims disrupted and the whole audit trail; one repack launch
+    a partition); config5 (two pools, the market on) through
+    ``TorchSolver()``: ONE FFD launch of 2 lanes, the plan the CPU's and the
+    one-by-one solve's (``KARPENTER_TPU_PARTITION_SOLVE=0``, 2 launches);
+    the cramped cross-partition case on the card: every zone-a node passes
+    the whole screen and fails the partitioned one. Returns the launches."""
+    from karpenter_provider_aws_tpu_torch.models import labels as lbl
+    from karpenter_provider_aws_tpu_torch.models.pod import make_pods
+    from karpenter_provider_aws_tpu_torch.ops import (
+        cluster_cases, consolidate, ffd_cuda, repack_cuda, solve_cases,
+    )
+    from karpenter_provider_aws_tpu_torch.catalog import CatalogProvider
+    from karpenter_provider_aws_tpu_torch.models import NodePool, Operator, Requirement
+    from karpenter_provider_aws_tpu_torch.scheduling import TorchSolver
+    from karpenter_provider_aws_tpu_torch.state import Cluster
+
+    os.environ["KARPENTER_TPU_SERIAL_LAUNCH"] = "1"  # the CPU run must name claims alike
+    obs, run = controlplane_partitioned()
+    if run["repack_launches"] != run["partitions"] or run["partitions"] != 4 \
+            or run["screen"].get("backend") != "partitioned(cuda-repack)":
+        raise AssertionError(f"{run['repack_launches']} repack launches over "
+                             f"{run['partitions']} partitions, {run['screen'].get('backend')}")
+    obs_cpu, run_cpu = controlplane_partitioned("cpu")
+    if run_cpu["screen"].get("backend") != "partitioned(torch-plain)":
+        raise AssertionError("the CPU environment did not screen by partition")
+    same_lifecycle(obs, obs_cpu, "controlplane_partitioned")
+    os.environ.pop("KARPENTER_TPU_SERIAL_LAUNCH")
+
+    # config5: the two pools as partition lanes, against the CPU and the
+    # pools solved one by one
+    os.environ["KARPENTER_TPU_OPTIMIZER"] = "0"
+    pkg = SimpleNamespace(lbl=lbl, make_pods=make_pods)
+    pools = [NodePool(name=name, requirements=[
+        Requirement(lbl.INSTANCE_CATEGORY, Operator.IN, cats)])
+        for name, cats in (("default", ("c", "m", "r")), ("accel", ("g", "p", "inf", "trn")))]
+    pods = solve_cases.config5_pods(pkg, 4000)
+    ffd_cuda.LAUNCHES = ffd_cuda.LANES = 0
+    t0 = time.perf_counter()
+    res = TorchSolver().solve(pods, pools, market_catalog())
+    lanes_ms = (time.perf_counter() - t0) * 1e3
+    launches, lanes = ffd_cuda.LAUNCHES, ffd_cuda.LANES
+    if (launches, lanes) != (1, 2):
+        raise AssertionError(f"config5 ran {launches} FFD launches of {lanes} lanes")
+    same_plan(res, TorchSolver(device="cpu").solve(pods, pools, market_catalog()),
+              "config5 lanes, card vs CPU")
+    os.environ["KARPENTER_TPU_PARTITION_SOLVE"] = "0"
+    ffd_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    solo = TorchSolver().solve(pods, pools, market_catalog())
+    solo_ms = (time.perf_counter() - t0) * 1e3
+    solo_launches = ffd_cuda.LAUNCHES
+    os.environ.pop("KARPENTER_TPU_PARTITION_SOLVE")
+    os.environ.pop("KARPENTER_TPU_OPTIMIZER")
+    same_plan(res, solo, "config5 lanes vs one by one")
+
+    # the cramped case: a partition-local screen is a tightening
+    os.environ["KARPENTER_TPU_PARTITION_ENCODE"] = "1"
+    cramped_cl, cramped_cat = Cluster(), CatalogProvider()
+    cramped = cluster_cases.cramped_cross_partition(port_pkg(), cramped_cl, cramped_cat)
+    cct = consolidate.encode_cluster(cramped_cl, cramped_cat)
+    repack_cuda.LAUNCHES = 0
+    part = dict(zip(cct.node_names, consolidate.consolidatable(cct).tolist()))
+    cramped_launches = repack_cuda.LAUNCHES
+    os.environ["KARPENTER_TPU_PARTITION_SCREEN"] = "0"
+    whole = dict(zip(cct.node_names, consolidate.consolidatable(cct).tolist()))
+    for var in ("KARPENTER_TPU_PARTITION_SCREEN", "KARPENTER_TPU_PARTITION_ENCODE"):
+        os.environ.pop(var)
+    if not all(whole[n] and not part[n] for n in cramped) or cramped_launches != 2:
+        raise AssertionError(f"cramped: whole {whole}, partitioned {part}, "
+                             f"{cramped_launches} launches")
+    emit({"phase": "controlplane_partitioned", **run, "cpu_controller_pass_ms":
+          run_cpu["controller_pass_ms"], "cpu_split_ms": run_cpu["split_ms"],
+          "cpu_run_equal": True, "audit_records": len(obs["decisions"]),
+          "config5": {"pods": len(pods), "placed": res.pods_placed(),
+                      "nodes": len(res.node_specs), "cost": res.total_cost,
+                      "launches": launches, "lanes": lanes, "wall_ms": lanes_ms,
+                      "one_by_one_launches": solo_launches, "one_by_one_wall_ms": solo_ms,
+                      "cpu_plan_equal": True, "one_by_one_plan_equal": True},
+          "cramped": {"nodes": len(cct.node_names), "zone_a": cramped,
+                      "whole_passed": sum(whole.values()), "partitioned_passed":
+                      sum(part.values()), "launches": cramped_launches},
+          "manager_errors": [], "card": smi})
+    return {"repack_launches": run["repack_launches"], "ffd_launches": launches,
+            "ffd_lanes": lanes}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1849,6 +2284,7 @@ def main() -> int:
     from karpenter_provider_aws_tpu_torch.interop import state_from_reference
     from karpenter_provider_aws_tpu_torch.ops import _build, ffd, ffd_cases, ffd_cuda, solve_cases
     from karpenter_provider_aws_tpu_torch.ops.encode import encode_problem, pad_problem
+    from karpenter_provider_aws_tpu_torch.parallel import mesh
     from karpenter_provider_aws_tpu_torch.scheduling import TorchSolver
 
     dev = torch.device("cuda")
@@ -1913,6 +2349,15 @@ def main() -> int:
         tensors[cname] = (t, N, init_state, npre)
     if parity["global_branch"]["resident"] or not parity["headline"]["resident"]:
         raise AssertionError("the cases did not cover both branches of the kernel")
+    # partition lanes of distinct problems, each from its own pre-opened rows
+    lproblems, lrows, lpre = ffd_cases.lanes_pre_opened()
+    largs, (_TB, lZB) = mesh.stack_lane_problems(lproblems)
+    linit, ln_pres = mesh.stack_lane_states(lpre, lrows, largs["requests"].shape[2], lZB,
+                                            largs["group_window"].shape[3])
+    pre_lanes = partition_lane_check(largs, linit, ln_pres, lrows, "lanes_pre_opened")
+    parity["lanes_pre_opened"] = {k: pre_lanes[k] for k in (
+        "N", "G", "T", "R", "lanes", "n_pre", "n_open", "placed", "unplaced", "max_abs_err")}
+    max_err = max(max_err, pre_lanes["max_abs_err"])
     emit({"phase": "parity", "cases": parity, "max_abs_err": max_err, "rtol": RTOL, "atol": ATOL})
 
     # 4. main path: the user's entry point, through the kernel
@@ -1996,7 +2441,15 @@ def main() -> int:
     lanes = optimizer_phase(dev, smi, pool, catalog, pods, pods8)
     cp = controlplane_phase(smi)
     dp = disruption_phase(smi)
-    repack_line["launches_by_path"]["controlplane_config4"] = dp["config4_repack"]
+    sp = scale_phase(smi)
+    pp = partitioned_phase(smi)
+    repack_line["launches_by_path"].update(controlplane_config4=dp["config4_repack"],
+                                           scale_config9=sp["repack_launches"],
+                                           controlplane_partitioned=pp["repack_launches"])
+    pt = sp["partition_timing"]  # config9's largest partition, as its mirror holds it
+    repack_line["partition_timing"] = {k: pt[k] for k in (
+        "partition", "N", "C", "S", "kernel_ms", "device_ms", "plain_ms", "bound_ms",
+        "bound_by")}
 
     main = timing[f"headline_{N_main}"]  # the FFD kernel's line: the main path's shapes
     emit({"kernels": [{
@@ -2010,13 +2463,18 @@ def main() -> int:
                              "controlplane_config7": cp["config7"],
                              "controlplane_config8": cp["config8"],
                              "controlplane_config4": dp["config4_ffd"],
-                             "controlplane_interruption": dp["interruption_ffd"]},
+                             "controlplane_interruption": dp["interruption_ffd"],
+                             "scale_config9": sp["ffd_launches"],
+                             "controlplane_partitioned": pp["ffd_launches"]},
         "lanes_by_path": {"headline_lane_on": lanes["lanes"],
-                          "controlplane_config8": cp["config8_lanes"]},
+                          "controlplane_config8": cp["config8_lanes"],
+                          "scale_config9": sp["ffd_lanes"],
+                          "controlplane_partitioned": pp["ffd_lanes"]},
         "lane_launch": {k: {f: v[f] for f in ("N", "lanes", "lanes_device_ms",
                                                "single_lane_device_ms", "bound_ms",
                                                "clusters_at_once")}
-                        for k, v in lanes["shapes"].items()},
+                        for k, v in {**lanes["shapes"], "config9_burst": sp["burst"],
+                                     "lanes_pre_opened": pre_lanes}.items()},
         "rows": N_main, "ms": main["kernel_ms"], "device_ms": main["device_ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

@@ -288,13 +288,7 @@ def owns_key(key: Optional[tuple]) -> bool:
 def _partition_of_claim(cluster, claim) -> Optional[tuple]:
     """The partition a claim's work routes to: its backing node's router
     mapping when registered, else the (nodepool, zone-label) pair when the
-    launch pinned a zone, else None (global).
-
-    One replica (no ambient ownership) filters no work and fences no
-    write, so no reader looks at the key: None, without asking the
-    partition router, which this package does not carry."""
-    if current() is None:
-        return None
+    launch pinned a zone, else None (global)."""
     node_name = getattr(getattr(claim, "status", None), "node_name", "")
     if node_name:
         key = cluster.partition_of(node_name)

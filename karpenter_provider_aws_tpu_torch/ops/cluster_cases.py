@@ -11,6 +11,12 @@ which hold two runs equal.
 - ``synth_cluster``: ``benchmarks/solve_configs.py``'s ``_synth_cluster``,
   the config4 cluster (spot c/m nodes of 4-16 vCPUs, 1..``pods_per_node``
   pods of 250m/512Mi bound to each, ``RandomState(seed)``);
+- ``config9_cluster`` and ``zone_bursts``: ``benchmarks/scale_bench.py``'s
+  config9, the same builder at 100,000 nodes of 1..4 pods, and its pending
+  burst split per zone (the scale tier's partition lanes);
+- ``cramped_cross_partition``: two zones where zone-a's pods fit only on
+  zone-b's nodes, so the global screen passes zone-a's nodes and the
+  partitioned screen does not;
 - ``seed_launched``: instances and finalizers behind such claims;
 - ``blocked_prefix_cluster`` and ``chooser_savings``:
   ``benchmarks/optimizer_bench.py``'s ``config6_multi_replace_optimizer``
@@ -38,6 +44,7 @@ def names(module) -> SimpleNamespace:
         NodePool=models.NodePool, Requirement=models.Requirement, Operator=models.Operator,
         Disruption=models.Disruption, TopologySpreadConstraint=models.TopologySpreadConstraint,
         consolidate=module("ops.consolidate"), seed_instance=module("testenv").seed_instance,
+        encode=module("ops.encode"),
         MANAGED_TAG=cp.MANAGED_TAG, NODEPOOL_TAG=cp.NODEPOOL_TAG,
         NODECLAIM_TAG=cp.NODECLAIM_TAG,
         FINALIZER=module("controllers.nodeclass_status").FINALIZER,
@@ -99,6 +106,55 @@ def synth_cluster(pkg, cluster, catalog, n_nodes: int = 5000, pods_per_node: int
         add_node(pkg, cluster, catalog, i, it, zone,
                  pkg.make_pods(fill, f"p{i}", {"cpu": "250m", "memory": "512Mi"}),
                  name=name(i) if name else "")
+
+
+#: ``benchmarks/scale_bench.py`` ``bench_scale``'s config9: nodes, pods per
+#: node, and the burst's pods a node (one pod per 100 nodes, at least 64)
+CONFIG9_NODES, CONFIG9_PODS_PER_NODE = 100_000, 4
+
+
+def config9_cluster(pkg, cluster, catalog, n_nodes: int = CONFIG9_NODES, name=None) -> None:
+    """config9's cluster: ``synth_cluster`` (RandomState(1)) at ``n_nodes``
+    nodes of 1..4 pods of 250m/512Mi, spread over the catalog's zones, one
+    (default, zone) partition each."""
+    synth_cluster(pkg, cluster, catalog, n_nodes, CONFIG9_PODS_PER_NODE, name=name)
+
+
+def zone_bursts(pkg, catalog, zones, pool, n_nodes: int = CONFIG9_NODES) -> list:
+    """config9's pending burst (``scale_bench.py:141-151``): ``max(64,
+    n_nodes // 100)`` pods of 500m/1Gi split evenly over ``zones``, each
+    zone's pods pinned to it by a node selector, encoded for ``pool``: one
+    ``EncodedProblem`` a zone, in the order of ``zones``."""
+    burst = max(64, n_nodes // 100)
+    return [pkg.encode.encode_problem(
+        pkg.make_pods(burst // len(zones), f"burst{z}", {"cpu": "500m", "memory": "1Gi"},
+                      node_selector={pkg.lbl.TOPOLOGY_ZONE: z}),
+        catalog, nodepool=pool) for z in zones]
+
+
+def cramped_cross_partition(pkg, cluster, catalog) -> list:
+    """Two zones of the default pool, three nodes each: in zone-a, two
+    4-vCPU c nodes each holding one pod of 3 CPU and a 16-vCPU node holding
+    15 pods of 1 CPU, so no zone-a node can take another's pods; in zone-b,
+    three 16-vCPU c nodes with one pod of 250m each. No pod constrains its
+    zone. The global screen passes every node (zone-a's pods fit on
+    zone-b's slack); the partitioned screen, which repacks each zone within
+    itself, fails every zone-a node. The claims are ``cramped-0`` ..
+    ``cramped-5`` whatever the package's claim sequence has reached.
+    Returns the zone-a nodes' names."""
+    small = next(t for t in catalog.list() if t.category == "c" and t.vcpus == 4)
+    big = next(t for t in catalog.list() if t.category == "c" and t.vcpus == 16)
+    cramped = [add_node(pkg, cluster, catalog, i, small, "zone-a",
+                        pkg.make_pods(1, f"cramped{i}", {"cpu": "3", "memory": "1Gi"}),
+                        name=f"cramped-{i}", provider="i-cramped").name for i in range(2)]
+    cramped.append(add_node(pkg, cluster, catalog, 2, big, "zone-a",
+                            pkg.make_pods(15, "full", {"cpu": "1", "memory": "1Gi"}),
+                            name="cramped-2", provider="i-cramped").name)
+    for i in range(3, 6):
+        add_node(pkg, cluster, catalog, i, big, "zone-b",
+                 pkg.make_pods(1, f"slack{i}", {"cpu": "250m", "memory": "512Mi"}),
+                 name=f"cramped-{i}", provider="i-cramped")
+    return cramped
 
 
 def seed_launched(pkg, env) -> None:

@@ -27,8 +27,10 @@ The counterpart of the JAX package's ``ops/consolidate.py`` (BASELINE config
   ``replacement_for_groups`` (one new node absorbing a set's overflow):
   numpy, copied.
 
-Not carried by this package yet, and refused when asked for: partitioned
-tensors (``_partitions``).
+A large store of several (nodepool, zone) partitions encodes through the
+partitioned encoder (``ops/encode_partition.py``), and its tensors screen
+partition by partition, one repack launch and one device mirror each
+(``_dispatch_screen_partitioned``).
 """
 
 from __future__ import annotations
@@ -120,7 +122,13 @@ def encode_cluster(cluster, catalog, gmax: int = GMAX_DEFAULT,
     change, or heavy churn (``ops/encode_delta.py``).
     ``KARPENTER_TPU_INCREMENTAL_ENCODE=0`` or ``incremental=False`` takes
     the full encode. ``pods_by_node`` lets a caller share an already-built
-    per-pass pod view, taken at revision ``rev_floor``."""
+    per-pass pod view, taken at revision ``rev_floor``.
+
+    A store of more than one (nodepool, zone) partition and at least
+    ``KARPENTER_TPU_PARTITION_MIN_NODES`` (8,192) nodes encodes through
+    one incremental chain per partition, merged into one emission
+    (``ops/encode_partition.py``; ``KARPENTER_TPU_PARTITION_ENCODE`` 1
+    forces it, 0 turns it off)."""
     import os
 
     if incremental is None:
@@ -130,7 +138,12 @@ def encode_cluster(cluster, catalog, gmax: int = GMAX_DEFAULT,
         )
     if incremental:
         from .encode_delta import incremental_encode_cluster
+        from .encode_partition import partition_encode_active, partitioned_encode_cluster
 
+        if partition_encode_active(cluster):
+            return partitioned_encode_cluster(
+                cluster, catalog, gmax, pods_by_node=pods_by_node, rev_floor=rev_floor,
+            )
         return incremental_encode_cluster(
             cluster, catalog, gmax, pods_by_node=pods_by_node, rev_floor=rev_floor,
         )
@@ -138,11 +151,13 @@ def encode_cluster(cluster, catalog, gmax: int = GMAX_DEFAULT,
 
 
 def _encode_cluster(cluster, catalog, gmax: int,
-                    pods_by_node=None) -> Optional[ClusterTensors]:
+                    pods_by_node=None, node_filter=None) -> Optional[ClusterTensors]:
     from ..models import labels as lbl
 
     # A node whose claim is already draining (deleted) is neither a
     # candidate nor a repack target — its capacity is going away.
+    # ``node_filter`` (a name set) scopes the encode to one partition's
+    # nodes (ops/encode_partition.py); eligibility rules are identical.
     claims = {c.name: c for c in cluster.snapshot_claims()}
     nodes = [
         n
@@ -151,6 +166,7 @@ def _encode_cluster(cluster, catalog, gmax: int,
         and not n.cordoned
         and n.nodeclaim_name in claims
         and not claims[n.nodeclaim_name].deleted
+        and (node_filter is None or n.name in node_filter)
     ]
     if not nodes:
         return None
@@ -435,7 +451,20 @@ def repack_check(
     min_r floor((free + 1e-4) / req) over req > 0, clamped to [0, 2^30],
     min with the cap row, 0 at the candidate itself; an exclusive prefix sum
     (int64) gives first-fit placements; ``free -= place * req``. Candidates
-    run ``chunk`` at a time as a batch dimension; slots run in order."""
+    run ``chunk`` at a time as a batch dimension; slots run in order.
+
+    The same values, with less work: only the resource axes some group
+    requests are carried (an axis no group requests has an infinite fit and
+    is never debited); a slot whose count is 0 for every candidate of the
+    chunk (it places nothing and debits nothing) is skipped, since the
+    mirror pads the slot axis to 8 and large clusters carry one or two live
+    slots; and the first slot a chunk runs reads each group's fit on the
+    undebited free from one [G, N] table, so a candidate's own copy of free
+    is made only when a later slot needs it."""
+    axes = (requests > 0).any(dim=0)
+    if not bool(axes.any()):
+        axes[0] = True  # no request at all: one (infinite-fit) axis stands for all
+    free, requests = free[:, axes], requests[:, axes]
     N, R = free.shape
     S = group_ids.shape[1]
     dev = free.device
@@ -443,32 +472,42 @@ def repack_check(
     with_req = requests > 0
     safe_req = torch.where(with_req, requests, torch.ones_like(requests))
     inf = torch.tensor(float("inf"), device=dev)
-    nodes = torch.arange(N, device=dev)
+
+    def fit(f, g):
+        """k before the self term: [..., N] from free ``f`` [..., N, R]."""
+        ratio = torch.where(with_req[g].unsqueeze(-2),
+                            torch.floor((f + _EPS) / safe_req[g].unsqueeze(-2)), inf)
+        return torch.minimum(ratio.amin(dim=-1).clamp(0.0, float(_UNCAPPED)), cap_f[g])
+
+    base_fit = None  # [G, N]: each group's fit on the undebited free
     out = []
     for start in range(0, candidates.shape[0], chunk):
         cand = candidates[start:start + chunk].long()
         B = cand.shape[0]
-        free_c = free.unsqueeze(0).expand(B, N, R).clone()
+        rows = torch.arange(B, device=dev)
         gids = group_ids[cand].long()
         gcnt = group_counts[cand].long()
-        other = nodes.unsqueeze(0) != cand.unsqueeze(1)  # [B, N]
+        live = [s for s in range(S) if bool((gcnt[:, s] != 0).any())]
+        free_c = None  # [B, N, R] once a slot has debited
         leftover = torch.zeros(B, dtype=torch.int64, device=dev)
-        for s in range(S):
+        for i, s in enumerate(live):
             g = gids[:, s]
             cnt = gcnt[:, s]
-            req = requests[g]                                    # [B, R]
-            ratio = torch.where(
-                with_req[g].unsqueeze(1),
-                torch.floor((free_c + _EPS) / safe_req[g].unsqueeze(1)),
-                inf,
-            )                                                    # [B, N, R]
-            k = ratio.amin(dim=-1).clamp(0.0, float(_UNCAPPED))
-            k = torch.minimum(k, cap_f[g])                       # [B, N]
-            k = torch.where(other, k, torch.zeros_like(k)).to(torch.int64)
+            if free_c is None:
+                if base_fit is None:
+                    base_fit = torch.stack([fit(free, torch.tensor(h, device=dev))
+                                            for h in range(requests.shape[0])])
+                k = base_fit[g]                                  # [B, N]
+            else:
+                k = fit(free_c, g)
+            k[rows, cand] = 0.0
+            k = k.to(torch.int64)
             cum_before = torch.cumsum(k, dim=1) - k
             place = torch.minimum((cnt.unsqueeze(1) - cum_before).clamp(min=0), k)
-            free_c = free_c - place.to(torch.float32).unsqueeze(2) * req.unsqueeze(1)
             leftover += cnt - place.sum(dim=1)
+            if i + 1 < len(live):
+                debit = place.to(torch.float32).unsqueeze(2) * requests[g].unsqueeze(1)
+                free_c = (free.unsqueeze(0) if free_c is None else free_c) - debit
         out.append(leftover == 0)
     if not out:
         return torch.zeros(0, dtype=torch.bool, device=dev)
@@ -571,12 +610,27 @@ def consolidatable(ct: ClusterTensors, chunk: int = 512, device=None) -> np.ndar
 def dispatch_screen(ct: ClusterTensors, chunk: int = 512, device=None) -> _PendingScreen:
     """Launch the screen and defer the device-to-host copy of the mask to
     ``wait()``. The mask is memoized per ``ct`` object and backend (the
-    answer is a pure function of the tensors)."""
-    if ct.__dict__.get("_partitions"):
-        raise NotImplementedError("partitioned cluster tensors are not ported")
+    answer is a pure function of the tensors).
+
+    Partitioned tensors (``ops/encode_partition.py``, more than one
+    partition) screen each partition against its OWN device mirror and
+    concatenate the masks (``KARPENTER_TPU_PARTITION_SCREEN=0`` screens the
+    merged tensors whole). A partition-local repack is a sound tightening of
+    the global screen: a node whose pods fit on the other nodes of its
+    partition fits on the other nodes of the cluster, so every node it
+    passes the global screen passes too; the host validator
+    (``repack_set_feasible`` on the merged tensors) stays the enforcement
+    point either way."""
+    import os
+
     dev = _resolve_device(device)
     backend = _repack_backend(dev)
     t0 = time.perf_counter()
+    parts = ct.__dict__.get("_partitions")
+    if parts and len(parts) > 1 and os.environ.get(
+        "KARPENTER_TPU_PARTITION_SCREEN", "1"
+    ) == "1":
+        return _dispatch_screen_partitioned(ct, parts, chunk, dev, f"partitioned({backend})", t0)
     memo = ct.__dict__.get("_screen_mask_memo")
     if memo is not None and memo[1] == backend:
         from . import device_state
@@ -602,6 +656,52 @@ def dispatch_screen(ct: ClusterTensors, chunk: int = 512, device=None) -> _Pendi
             LAST_SCREEN.clear()
             LAST_SCREEN.update(backend=backend, device=_device_name(dev), memo_hit=False,
                                wall_ms=(time.perf_counter() - t0) * 1e3, **stages)
+        return done["out"]
+
+    return _PendingScreen(wait=_wait)
+
+
+def _dispatch_screen_partitioned(ct: ClusterTensors, parts, chunk: int, dev: torch.device,
+                                 backend: str, t0: float) -> _PendingScreen:
+    """Per-partition screen: every partition's screen is dispatched (its
+    inputs from that partition's own device mirror, its kernel launched)
+    before any mask is fetched, and the global mask is the concatenation in
+    the partitions' node-axis order. The merged ``ct`` keeps its own mask
+    memo, under ``backend`` (``partitioned(<backend>)``), apart from the
+    partitions' memos and from a whole screen of the same tensors."""
+    N = len(ct.node_names)
+    off = 0
+    for _key, part_ct, p_off, n in parts:
+        if p_off != off or n != len(part_ct.node_names):
+            raise ValueError(f"the partitions do not tile the node axis at offset {off}")
+        off += n
+    if off != N:
+        raise ValueError(f"the partitions cover {off} of {N} nodes")
+    memo = ct.__dict__.get("_screen_mask_memo")
+    if memo is not None and memo[1] == backend:
+        out = memo[0].copy()
+        LAST_SCREEN.clear()
+        LAST_SCREEN.update(backend=backend, device=_device_name(dev), memo_hit=True,
+                           partitions=len(parts), wall_ms=(time.perf_counter() - t0) * 1e3)
+        return _PendingScreen(wait=lambda: out)
+    pendings = [(p_off, n, dispatch_screen(part_ct, chunk, dev))
+                for _key, part_ct, p_off, n in parts]
+    done: dict = {}
+
+    def _wait() -> np.ndarray:
+        if "out" not in done:
+            out = np.zeros(N, dtype=bool)
+            screens = []
+            for p_off, n, pending in pendings:
+                out[p_off:p_off + n] = pending.wait()
+                screens.append(dict(LAST_SCREEN))
+            done["out"] = out
+            ct.__dict__["_screen_mask_memo"] = (out.copy(), backend)
+            LAST_SCREEN.clear()
+            LAST_SCREEN.update(backend=backend, device=_device_name(dev), memo_hit=False,
+                               partitions=len(parts), residency="partitioned",
+                               part_screens=screens,
+                               wall_ms=(time.perf_counter() - t0) * 1e3)
         return done["out"]
 
     return _PendingScreen(wait=_wait)

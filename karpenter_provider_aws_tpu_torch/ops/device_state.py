@@ -20,7 +20,12 @@ incremental-encoder chain and device:
    and no out-of-range sentinel (a torch index out of range raises);
  - a membership change, a broken or too-deep patch chain, or axis growth
    re-uploads; ``KARPENTER_TPU_DEVICE_STATE=0`` switches the layer off (the
-   screen then uploads per ``ct``).
+   screen then uploads per ``ct``);
+ - the partitioned encoder (``ops/encode_partition.py``) gives each
+   (nodepool, zone) partition its own chain and the merged tensors another,
+   so each partition has its own mirror, keyed apart from the merged one's:
+   a partition that loses its mirror uploads again alone, and the others
+   are patched.
 
 Exactness contract: the mirror holds the same values a fresh upload of the
 ``ct`` would. ``verify_mirror`` fetches the buffers and compares them

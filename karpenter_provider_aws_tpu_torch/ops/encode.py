@@ -449,8 +449,14 @@ def _problem_cache_key(pods, catalog, nodepool, occupancy, allowed_types,
         # scheduling-field reassignment (Pod.__setattr__) so a mutated pod
         # can never be served its stale encoding
         pods_key = (tuple(map(id, pods)), tuple(p._version for p in pods))
+    # the DaemonSet overhead changes CAPACITY; it is process state outside
+    # the pod/catalog keys, so it participates explicitly — re-registering
+    # agents can never serve a stale encoding
+    from . import overhead as _overhead
+
     return (
         pods_key,
+        _overhead.seq(),
         # catalog.uid, not id(catalog): the cached problem does not keep the
         # catalog alive, so a freed catalog's address could be reused
         catalog.uid,
@@ -520,8 +526,12 @@ def encode_problem(
     # Effective per-type capacity: ephemeral-storage follows the pool's
     # NODECLASS (GetInstanceTypes is per-NodePool + nodeclass in the
     # reference for exactly this reason). Computed HERE so the per-pod fit
-    # prefilter and the solve tensor agree.
-    cap_eff = effective_capacity(tensors.capacity, types, nodeclass)
+    # prefilter and the solve tensor agree. Per-node agent reservations
+    # (ops/overhead.py) come off every candidate type the same way — a
+    # fresh node pays its DaemonSets before the first workload pod lands.
+    from . import overhead as _overhead
+
+    cap_eff = _overhead.apply(effective_capacity(tensors.capacity, types, nodeclass))
 
     # Per-problem offering availability: the reserved axis is masked down to
     # the pairs this pool may use; price/compat/type_window all derive from

@@ -776,10 +776,34 @@ class LazyGroupPods:
         for g in range(len(self._items)):
             yield self._get(g)
 
+    def rep(self, g: int):
+        """Group ``g``'s representative pod (``pods[0]``) WITHOUT
+        materializing the flat list — the merge paths only need reps."""
+        it = self._items[g]
+        if callable(it):
+            got = self._built.get(g)
+            if got is not None:
+                return got[0] if got else None
+            first = getattr(it, "first", None)
+            if first is not None:
+                return first()
+            it = self._get(g)
+        return it[0] if it else None
+
+
+def group_rep(pods, g: int):
+    """``pods[g][0]`` (or None for an empty group) that stays O(1) on a
+    :class:`LazyGroupPods` emission."""
+    if isinstance(pods, LazyGroupPods):
+        return pods.rep(g)
+    plist = pods[g]
+    return plist[0] if plist else None
+
 
 class _SnapshotPods:
     """Zero-arg callable building the flat pod list of a snapshotted row
-    bucket."""
+    bucket, with an O(rows) ``first()`` so representative reads skip the
+    build."""
 
     __slots__ = ("snap",)
 
@@ -791,6 +815,11 @@ class _SnapshotPods:
         for r in sorted(self.snap):
             out.extend(self.snap[r])
         return out
+
+    def first(self):
+        if not self.snap:
+            return None
+        return self.snap[min(self.snap)][0]
 
 
 def _lazy_group_pods(state: _EncoderState, gid: int):
@@ -805,7 +834,7 @@ def _lazy_group_pods(state: _EncoderState, gid: int):
 def _carry_group_pods(prev_pods, g: int):
     """The previous emission's slot for group ``g`` WITHOUT materializing
     it (keeps untouched groups lazy across pass chains, depth-free, and
-    preserves slot identity).
+    preserves slot identity — the partitioned merge's touched test).
     Prefers an already-built list so a carried slot never rebuilds."""
     if isinstance(prev_pods, LazyGroupPods):
         it = prev_pods._items[g]
@@ -950,13 +979,14 @@ def _emit_fast(state: _EncoderState, prev, dirty_rows: list[int]):
 # -- full (re)build ---------------------------------------------------------
 
 def _full_build(state: _EncoderState, cluster, catalog, gmax,
-                pods_by_node=None, rev_floor=None):
+                pods_by_node=None, rev_floor=None, node_filter=None):
     from ..state.cluster import NODE_WRITE_SEQ
     from .consolidate import _encode_cluster
 
     rev0 = cluster.rev if rev_floor is None else rev_floor
     seq0 = NODE_WRITE_SEQ.v
-    ct = _encode_cluster(cluster, catalog, gmax, pods_by_node=pods_by_node)
+    ct = _encode_cluster(cluster, catalog, gmax, pods_by_node=pods_by_node,
+                         node_filter=node_filter)
     lock = state.lock  # held by the caller — must survive the re-init
     state.__init__(gmax)
     state.lock = lock
@@ -971,8 +1001,12 @@ def _full_build(state: _EncoderState, cluster, catalog, gmax,
     state.overhead_seq = _overhead.seq()
     # every node NOT in the encoding is parked with its current version so
     # direct-mutation flips back to eligibility are caught by the scan
+    # (``node_filter`` scopes a PARTITION encoder to its own nodes — it
+    # must never park another partition's population)
     tracked = set(ct.node_names) if ct is not None else set()
     for name, node in cluster.nodes.items():
+        if node_filter is not None and name not in node_filter:
+            continue
         if name not in tracked:
             state.parked[name] = node._version
     if ct is None:
@@ -1089,13 +1123,15 @@ def _full_build(state: _EncoderState, cluster, catalog, gmax,
 
 # -- dirty-set computation ----------------------------------------------------
 
-def _collect_dirty(state: _EncoderState, cluster, changes) -> dict:
+def _collect_dirty(state: _EncoderState, cluster, changes,
+                   claim_owner=None) -> dict:
     """Dirty node names for one pass: journal entries first (store order),
     then the defensive version scan that catches direct attribute writes
     on live objects. The scan runs only when SOME Node field was written
     since the state's last look (NODE_WRITE_SEQ) — binds/unbinds don't
     count as node writes, so the steady-churn path skips the O(rows) walk
-    entirely."""
+    entirely. ``claim_owner(node_name) -> bool`` lets the partitioned
+    encoder skip claim-carried names owned by another partition."""
     from ..state.cluster import NODE_WRITE_SEQ
 
     dirty: dict[str, None] = {}
@@ -1107,7 +1143,8 @@ def _collect_dirty(state: _EncoderState, cluster, changes) -> dict:
     for cname in changes.get("claim", ()):
         claim = cluster.nodeclaims.get(cname)
         if claim is not None and claim.status.node_name:
-            dirty[claim.status.node_name] = None
+            if claim_owner is None or claim_owner(claim.status.node_name):
+                dirty[claim.status.node_name] = None
         row = state.claim_row.get(cname)
         if row is not None and state.row_name[row] is not None:
             dirty[state.row_name[row]] = None
@@ -1222,8 +1259,10 @@ def incremental_encode_cluster(cluster, catalog, gmax, pods_by_node=None,
 
 
 def invalidate_cluster_encoders(cluster) -> None:
-    """Drop every persistent encoder for ``cluster`` (tests / big hammer)."""
+    """Drop every persistent encoder for ``cluster`` (tests / big hammer)
+    — the single-chain states AND the partitioned sibling's."""
     cluster.__dict__.pop(_STATES_ATTR, None)
+    cluster.__dict__.pop("_cluster_part_encoders", None)
 
 
 # -- canonical comparison (the exactness contract) ----------------------------

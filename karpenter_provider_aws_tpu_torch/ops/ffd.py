@@ -222,14 +222,22 @@ def ffd_solve_lanes(
     type_window: torch.Tensor,   # [L, T] int32
     max_per_node: torch.Tensor,  # [L, G] int32
     max_nodes: int,
+    init_state: Optional[_State] = None,  # fields with a leading [L] axis
+    n_pre: Optional[torch.Tensor] = None,  # [L] int32 pre-opened rows a lane
 ) -> FFDResult:
-    """L independent solves from no open rows, one ``ffd_solve`` per lane;
-    the fields of the result carry the leading lane axis. The plain
-    counterpart of ``ops.ffd_cuda.ffd_solve_lanes``' single launch."""
+    """L independent solves, one ``ffd_solve`` per lane, each from no open
+    rows or, with ``init_state``, from its lane of the stacked state and
+    its ``n_pre``; the fields of the result carry the leading lane axis.
+    The plain counterpart of ``ops.ffd_cuda.ffd_solve_lanes``' single
+    launch."""
+    L = requests.shape[0]
+    n_pre_h = [0] * L if n_pre is None else [int(v) for v in n_pre.cpu().tolist()]
     outs = [
         ffd_solve(requests[i], counts[i], compat[i], capacity[i], price[i], group_window[i],
-                  type_window[i], max_per_node=max_per_node[i], max_nodes=max_nodes)
-        for i in range(requests.shape[0])
+                  type_window[i], max_per_node=max_per_node[i], max_nodes=max_nodes,
+                  init_state=None if init_state is None else _State(*(f[i] for f in init_state)),
+                  n_pre=n_pre_h[i])
+        for i in range(L)
     ]
     return FFDResult(*(torch.stack(f) for f in zip(*outs)))
 

@@ -140,3 +140,33 @@ def card_cases() -> dict:
             np.full((N, R), 100.0, np.float32), np.ones((N, 1, 1), bool))
     cases["zero_request"] = (args, N, init, n_pre, 1, 1)
     return cases
+
+
+def lanes_pre_opened() -> tuple:
+    """Partition lanes of distinct problems in one launch: K = 3 lanes of 16
+    groups on 4 zones x 3 capacity types and 4,096 rows, with T = 40, 64
+    and 25 types and 0, 300 and 2,000 pre-opened live rows. Returns
+    ``(problems, N, pre)``: each problem's host arrays as a namespace that
+    ``parallel.mesh.stack_lane_problems`` takes (its type axis padded to
+    the widest lane's with unusable types), and each lane's pre-opened rows
+    (``node_type, used, node_cap, node_window``, or None) for
+    ``stack_lane_states``."""
+    from types import SimpleNamespace
+
+    N, R, Z, C = 4096, 10, 4, 3
+    problems, pre = [], []
+    for k, (T, n_pre) in enumerate(((40, 0), (64, 300), (25, 2000))):
+        rng = np.random.RandomState(31 + k)
+        args = list(random_problem(rng, 16, T, R, Z, C))
+        args[1] = rng.randint(20, 300, 16).astype(np.int32)
+        args[7][:] = np.where(rng.rand(16) < 0.8, _BIG, args[7])  # most groups uncapped
+        problems.append(SimpleNamespace(**dict(zip(
+            ("requests", "counts", "compat", "capacity", "price", "group_window",
+             "type_window", "max_per_node"), args))))
+        if n_pre:
+            node_type, _price, used, node_cap, node_window = pre_opened(
+                rng, args[3], args[6], n_pre, R, n_pre)
+            pre.append((node_type, used, node_cap, node_window))
+        else:
+            pre.append(None)
+    return problems, N, pre

@@ -6,7 +6,8 @@ with the node state resident in the shared memory of ``active_ctas(N, R)``
 of them (or, past ``ffd_smem_bytes``'s budget, in a global scratch).
 ``ffd_solve`` takes the same arguments as ``ops.ffd.ffd_solve`` and returns
 the same ``FFDResult``; ``ffd_solve_lanes`` runs L independent solves (the
-optimizer lane's) as one launch of L clusters, as ``ops.ffd.ffd_solve_lanes``
+optimizer lane's, from no open rows; the partition lanes', each from its own
+pre-opened rows) as one launch of L clusters, as ``ops.ffd.ffd_solve_lanes``
 runs them lane by lane.
 Tensors on the CPU go through the plain version; tensors on a CUDA device
 launch the kernel, or raise. There is no fallback from one to the other.
@@ -174,20 +175,32 @@ def ffd_solve_lanes(
     type_window: torch.Tensor,   # [L, T] int32 window bits
     max_per_node: torch.Tensor,  # [L, G] int32
     max_nodes: int,
+    init_state: Optional[_State] = None,  # fields with a leading [L] axis
+    n_pre: Optional[torch.Tensor] = None,  # [L] int32 pre-opened rows a lane
 ) -> FFDResult:
-    """L independent FFD solves, each from no open rows: ONE kernel launch of
-    L clusters for CUDA tensors, the plain version lane by lane for CPU
-    tensors. The result's fields carry the leading lane axis."""
+    """L independent FFD solves: ONE kernel launch of L clusters for CUDA
+    tensors, the plain version lane by lane for CPU tensors. Each lane
+    starts from no open rows or, with ``init_state``, from its lane of the
+    stacked state (``max_nodes`` rows a lane) and its ``n_pre`` pre-opened
+    rows (the partition lanes: each pool's live nodes). The result's fields
+    carry the leading lane axis."""
     if requests.device.type == "cpu":
         return _plain.ffd_solve_lanes(requests, counts, compat, capacity, price, group_window,
-                                      type_window, max_per_node, max_nodes)
+                                      type_window, max_per_node, max_nodes,
+                                      init_state=init_state, n_pre=n_pre)
     if requests.device.type != "cuda":
         raise ValueError(f"no FFD kernel for device {requests.device}")
     L, _G, R = requests.shape
     dev = requests.device
-    empty = _plain.empty_state(max_nodes, R, dev)
-    state = _State(*(t.unsqueeze(0).expand(L, *t.shape).contiguous() for t in empty))
-    n_pre_t = torch.zeros(L, dtype=torch.int32, device=dev)
+    if init_state is None:
+        empty = _plain.empty_state(max_nodes, R, dev)
+        state = _State(*(t.unsqueeze(0).expand(L, *t.shape).contiguous() for t in empty))
+    else:
+        state = init_state
+    n_pre_t = torch.zeros(L, dtype=torch.int32, device=dev) if n_pre is None else n_pre
+    N = state.used.shape[1]
+    if bool(((n_pre_t < 0) | (n_pre_t > N)).any()):
+        raise ValueError(f"an n_pre outside [0, {N}]: {n_pre_t.tolist()}")
     return _launch(requests, counts, compat, capacity, price, group_window, type_window,
                    max_per_node, state, n_pre_t)
 

@@ -5,10 +5,16 @@ that consume capacity before the first workload pod lands. Taking a
 node's allocatable at face value therefore over-binds exactly at the
 margin (a fleet of 1-slot-margin nodes binds one pod too many per node).
 
-The registry holds ONE process-wide reservation vector that the cluster
-encode (``ops/consolidate._encode_cluster``) subtracts from each live
-node's allocatable. The provisioning encode (``ops/encode.py``) does not
-read it yet.
+The registry holds ONE process-wide reservation vector that every encode
+path subtracts from per-node capacity:
+
+- ``ops/consolidate._encode_cluster`` and ``ops/encode_delta._fill_row``
+  subtract it from each live node's allocatable (both read the same
+  registration, so the incremental/full exactness contract holds);
+- ``ops/encode.encode_problem`` subtracts it from every candidate
+  instance type's effective capacity (fresh nodes pay the agents too);
+- ``scheduling/solver.snapshot_existing_capacity`` subtracts it from
+  every existing node offered to the provisioning solve.
 
 An empty registration (the default) is byte-identical to the pre-overhead
 encoders. ``seq()`` bumps on every ``set_node_overhead`` call so encoded-

@@ -19,7 +19,10 @@ plan's one device-to-host copy and before the FFD plan's host refine and
 decode, so that the card runs the lanes while the host refines.
 
 Multi-nodepool handling mirrors the core scheduler: nodepools are tried in
-weight order; pods a nodepool cannot place fall through to the next.
+weight order; pods a nodepool cannot place fall through to the next. Every
+pool with pods is solved in one launch, as partition lanes of the FFD kernel
+(``dispatch_encoded_batch``; ``KARPENTER_TPU_PARTITION_SOLVE=0`` solves the
+pools one by one).
 
 Market state (reservation windows, a market model's reclaim premium) rides
 the catalog's price and availability tensors, as in the reference.
@@ -36,9 +39,10 @@ launch that opens new nodes.
 Not carried yet, and refused when asked for (``NotImplementedError``): gang
 scheduling (a gang-annotated pod at encode, a non-None ``gang_bound`` here),
 lazy lane admission on a cold start (``KARPENTER_TPU_OPT_COLD_SKIP=1``),
-partition lanes and partition-scoped snapshots, and why-attribution. There
-is no degraded mode: a CUDA solve either runs the kernel or raises, and a
-lane that raises raises out of the solve.
+lanes sharded over several devices (``KARPENTER_TPU_PARTITION_SOLVE=
+shard_map``), partition-scoped snapshots (the sharded provisioner's), and
+why-attribution. There is no degraded mode: a CUDA solve either runs the
+kernel or raises, and a lane that raises raises out of the solve.
 """
 
 from __future__ import annotations
@@ -60,12 +64,13 @@ from ..models.resources import ResourceVector
 from ..ops import ffd_cuda
 from ..ops.encode import EncodedProblem, bucket, encode_problem, pad_problem
 from ..ops.ffd import (
+    _State,
     compact_plan,
-    empty_state,
     pack_window_bits,
     rank_launch_options,
     unpack_window_bits,
 )
+from ..parallel.mesh import lane_state, stack_lane_states
 from . import optimizer as _opt
 
 # Launch-path truncation parity: instance.go:52-53 — at most 60 instance
@@ -133,11 +138,13 @@ def snapshot_existing_capacity(cluster, nominations=None, partition=None,
     anywhere else (and building 100k foreign rows per local solve would
     cap the multi-replica speedup). ``usage`` lets one reconcile pass
     share a single O(pods) node-usage walk across its per-partition
-    solves instead of paying it per bucket. This package has no partition
-    router yet: a ``partition`` raises ``NotImplementedError``."""
+    solves instead of paying it per bucket. The sharded provisioner is
+    not carried by this package yet (it comes with the replica set): a
+    ``partition`` raises ``NotImplementedError``."""
     if partition is not None:
         raise NotImplementedError(
-            "partition-scoped capacity snapshots are not supported by this package yet"
+            "partition-scoped capacity snapshots (the sharded provisioner) are not "
+            "supported by this package yet"
         )
     usage = usage if usage is not None else cluster.node_usage()
     claims = cluster.snapshot_claims()  # ONE snapshot for both passes below
@@ -322,6 +329,15 @@ def _node_rows_bucket(n: int, minimum: int = 64) -> int:
 
 def _node_bucket(num_pods: int) -> int:
     return min(max(bucket(max(num_pods, 1), minimum=64), 64), 8192)
+
+
+def _padded(problem: EncodedProblem, GB: int) -> EncodedProblem:
+    """``problem`` padded to the group bucket ``GB``, memoized on it."""
+    pad_memo = problem.__dict__.setdefault("_pad_memo", {})
+    padded = pad_memo.get(GB)
+    if padded is None:
+        padded = pad_memo[GB] = pad_problem(problem, GB)
+    return padded
 
 
 def _estimate_nodes(problem: EncodedProblem, G: int) -> int:
@@ -783,17 +799,19 @@ def _refuse_unsupported(gang_bound=None) -> None:
     """What the JAX package's solver carries and this package does not yet,
     refused with ``NotImplementedError`` instead of being ignored: gangs (a
     gang-annotated pod, at encode, and a non-None ``gang_bound``, here),
-    why-attribution (``KARPENTER_TPU_WHY``) and partition lanes
-    (``KARPENTER_TPU_PARTITION_SOLVE``), each armed only by an explicit
-    switch, and lazy lane admission (``KARPENTER_TPU_OPT_COLD_SKIP=1``, at
-    the lane). Left unset, the switches are off here."""
+    why-attribution (``KARPENTER_TPU_WHY``, armed only by the switch), lanes
+    sharded over several devices (``KARPENTER_TPU_PARTITION_SOLVE=shard_map``;
+    ``0``, ``auto`` and ``vmap`` are carried: partition lanes on one card),
+    and lazy lane admission (``KARPENTER_TPU_OPT_COLD_SKIP=1``, at the
+    lane)."""
     if gang_bound is not None:
         raise NotImplementedError(
             "gang scheduling (gang_bound) is not supported by the torch solver yet"
         )
     for var, what, off in (
         ("KARPENTER_TPU_WHY", "why-attribution", ("0",)),
-        ("KARPENTER_TPU_PARTITION_SOLVE", "partition lanes", ("0", "auto")),
+        ("KARPENTER_TPU_PARTITION_SOLVE", "lanes sharded over several devices",
+         ("0", "auto", "vmap")),
     ):
         value = os.environ.get(var)
         if value is not None and value not in off:
@@ -880,49 +898,28 @@ class TorchSolver:
             }
         return hit
 
-    def _run(self, problem, dev_in: dict, N: int, pre_rows, n_pre: int,
-             GB: int, hist_key) -> tuple[dict, object]:
-        """One kernel launch, the ranking and the sparse plan on the device,
-        then ONE device-to-host copy. Returns (host arrays, device result)."""
-        R = dev_in["requests"].shape[1]
-        state = None
-        if pre_rows:
-            _nm, ptype, pused, pcap, pwin = pre_rows
-            node_type0 = np.zeros(N, dtype=np.int32)
-            used0 = np.zeros((N, R), dtype=np.float32)
-            cap0 = np.zeros((N, R), dtype=np.float32)
-            win0 = np.zeros(N, dtype=np.int32)
-            node_type0[:n_pre] = ptype
-            used0[:n_pre] = pused
-            cap0[:n_pre] = pcap
-            win0[:n_pre] = pack_window_bits(pwin)
-            st = empty_state(N, R, self.device, n_open=n_pre)
-            state = st._replace(
-                node_type=torch.from_numpy(node_type0).to(self.device),
-                used=torch.from_numpy(used0).to(self.device),
-                node_cap=torch.from_numpy(cap0).to(self.device),
-                node_window=torch.from_numpy(win0).to(self.device),
-            )
-        res = ffd_cuda.ffd_solve(
-            dev_in["requests"], dev_in["counts"], dev_in["compat"],
-            dev_in["capacity"], dev_in["price"], dev_in["group_window"],
-            dev_in["type_window"], max_per_node=dev_in["max_per_node"],
-            max_nodes=N, init_state=state, n_pre=n_pre,
-        )
+    def _plan_parts(self, problem, dev_in: dict, res, N: int, GB: int, hist_key,
+                    T_real: Optional[int] = None) -> list:
+        """The ranking and the sparse plan of one solve's result, on the
+        device: ``(name, tensor, length)`` of everything the decode needs.
+        ``T_real`` clips ranked type indices into a lane's own type axis
+        (the lanes pad it; entries past ``n_valid`` are never read)."""
         k = min(MAX_INSTANCE_TYPE_OPTIONS, problem.capacity.shape[0])
         ranked_idx, ranked_n, best_price = rank_launch_options(
             res.placed, dev_in["price"], res.used, dev_in["capacity"],
             dev_in["type_window"], res.node_window, res.node_type,
             dev_in["exotic"], k=k,
         )
+        if T_real is not None:
+            ranked_idx = torch.clamp(ranked_idx, max=T_real - 1)
         # the sparse plan buffer sizes itself to what plans of this
         # signature produced (floor 2N covers ~2 groups per open row)
         nz_seen = self._nz_hist.get(hist_key)
         E = bucket(max(1024, 2 * N, 4 * GB,
                        0 if nz_seen is None else int(nz_seen * 1.5) + 64))
         nz, nz_cnt, total_nz = compact_plan(res.placed, E)
-        G = dev_in["requests"].shape[0]
-        parts = [
+        G = res.placed.shape[0]
+        return [
             ("nz", nz, E), ("nz_cnt", nz_cnt, E), ("total_nz", total_nz.reshape(1), 1),
             ("unplaced", res.unplaced, G), ("node_type", res.node_type, N),
             ("node_price", res.node_price.view(torch.int32), N),
@@ -931,18 +928,43 @@ class TorchSolver:
             ("ranked_n", ranked_n.to(torch.int32), N),
             ("best_price", best_price.view(torch.int32), N),
         ]
-        # ONE device-to-host copy for everything the decode needs
-        flat = torch.cat([t for _, t, _ in parts]).cpu().numpy()
-        out, off = {}, 0
+
+    @staticmethod
+    def _unpack(parts: list, flat: np.ndarray, off: int, N: int) -> tuple[dict, int]:
+        """One solve's host arrays from the fetched ``flat`` buffer at
+        ``off``; returns them and the offset past them."""
+        out = {}
         for name, _t, n in parts:
             out[name] = flat[off:off + n]
             off += n
         out["node_price"] = out["node_price"].view(np.float32)
         out["best_price"] = out["best_price"].view(np.float32)
-        out["ranked_idx"] = out["ranked_idx"].reshape(N, k)
+        out["ranked_idx"] = out["ranked_idx"].reshape(N, -1)
         out["total_nz"] = int(out["total_nz"][0])
         out["n_open"] = int(out["n_open"][0])
-        return out, res
+        return out, off
+
+    def _run(self, problem, dev_in: dict, N: int, pre_rows, n_pre: int,
+             GB: int, hist_key) -> tuple[dict, object]:
+        """One kernel launch, the ranking and the sparse plan on the device,
+        then ONE device-to-host copy. Returns (host arrays, device result)."""
+        state = None
+        if pre_rows:
+            # the lane path's state builder, one lane
+            pwin = pre_rows[4]
+            init, _n = stack_lane_states([pre_rows[1:]], N, dev_in["requests"].shape[1],
+                                         *pwin.shape[1:])
+            state = _State(*(t[0] for t in lane_state(init, self.device)))
+        res = ffd_cuda.ffd_solve(
+            dev_in["requests"], dev_in["counts"], dev_in["compat"],
+            dev_in["capacity"], dev_in["price"], dev_in["group_window"],
+            dev_in["type_window"], max_per_node=dev_in["max_per_node"],
+            max_nodes=N, init_state=state, n_pre=n_pre,
+        )
+        parts = self._plan_parts(problem, dev_in, res, N, GB, hist_key)
+        # ONE device-to-host copy for everything the decode needs
+        flat = torch.cat([t for _, t, _ in parts]).cpu().numpy()
+        return self._unpack(parts, flat, 0, N)[0], res
 
     def solve_encoded(
         self, problem: EncodedProblem, existing: Optional[Sequence[ExistingNode]] = None,
@@ -950,7 +972,6 @@ class TorchSolver:
         G = len(problem.group_pods)
         if G == 0:
             return [], [], {}
-        num_pods = int(problem.counts[:G].sum())
         # Pre-open existing nodes: committed type index, current usage,
         # one-hot (zone, captype) window, price 0 (sunk cost — filling live
         # slack must always beat opening a new node).
@@ -959,35 +980,38 @@ class TorchSolver:
         names = pre_rows[0] if pre_rows else []
 
         GB = bucket(G)
-        pad_memo = problem.__dict__.setdefault("_pad_memo", {})
-        padded = pad_memo.get(GB)
-        if padded is None:
-            padded = pad_memo[GB] = pad_problem(problem, GB)
-        dev_in = self._device_inputs(padded)
+        dev_in = self._device_inputs(_padded(problem, GB))
+        # Without an explicit cap, N starts at the demand estimate and
+        # retries at the full pod-count bucket iff the solve ran out of rows
+        # with pods left.
+        N, N_cap, pre_extra, hist_key = self._rows(problem, n_pre)
+        if self.max_nodes:
+            N = N_cap
+        return self._wait(problem, dev_in, N, N_cap, pre_extra, hist_key,
+                          pre_rows, names, n_pre, GB)
 
-        # ``max_nodes`` bounds FRESH nodes only: pre-opened existing rows ride
-        # on top, bucketed separately. Without an explicit cap, N starts at
-        # the demand estimate and retries at the full pod-count bucket iff
-        # the solve ran out of rows with pods left.
+    def _rows(self, problem: EncodedProblem, n_pre: int) -> tuple:
+        """A problem's rows, for the solo and the lane paths alike:
+        ``(N, N_cap, pre_extra, hist_key)``. ``max_nodes`` bounds FRESH nodes
+        only (N_cap; else the pod-count bucket): pre-opened existing rows
+        ride on top, bucketed separately (pre_extra). N is the demand
+        estimate on the row ladder, at most N_cap: the problem's row
+        history, else ``_estimate_nodes``. The history is keyed on the
+        problem's OWN group bucket, so it transfers between the solo and
+        batched paths and survives batch-composition changes."""
+        G = len(problem.group_pods)
+        num_pods = int(problem.counts[:G].sum())
         N_cap = self.max_nodes or _node_bucket(num_pods)
         hist_key = (
             problem.nodepool.name if problem.nodepool else "",
-            GB,
+            bucket(max(G, 1)),
             bucket(max(num_pods, 1)),
         )
-        if self.max_nodes:
-            N = N_cap
-        else:
-            hist = self._n_open_hist.get(hist_key)
-            est = (
-                int(hist * 1.25) + 8
-                if hist is not None
-                else _estimate_nodes(problem, G)
-            )
-            N = min(_node_rows_bucket(max(est, 64)), N_cap)
+        hist = self._n_open_hist.get(hist_key)
+        est = int(hist * 1.25) + 8 if hist is not None else _estimate_nodes(problem, G)
+        N = min(_node_rows_bucket(max(est, 64)), N_cap)
         pre_extra = bucket(n_pre, minimum=256) if n_pre else 0
-        return self._wait(problem, dev_in, N, N_cap, pre_extra, hist_key,
-                          pre_rows, names, n_pre, GB)
+        return N, N_cap, pre_extra, hist_key
 
     def _wait(self, problem, dev_in, N, N_cap, pre_extra, hist_key, pre_rows,
               names, n_pre, GB):
@@ -1007,17 +1031,30 @@ class TorchSolver:
             unplaced_arr = out["unplaced"][:G]
             n_open = out["n_open"]
 
+        return self._finish(problem, dev_in, out, (res.placed, res.used), N + pre_extra,
+                            n_first, hist_key, pre_rows, names, n_pre, GB, t_dev)
+
+    def _finish(self, problem, dev_in, out: dict, dense, Nr: int, n_first: int, hist_key,
+                pre_rows, names, n_pre: int, GB: int, t_dev: float):
+        """From one solve's fetched host arrays to its plan: the dense plan
+        from the sparse one (``dense``: the device's placed and used, fetched
+        only if the sparse buffer overflowed), the optimizer lane enqueued,
+        commit-downsize, refine, decode, then the lane's arbitration.
+        ``dev_in`` is the problem's device inputs, or a zero-arg callable
+        making them (only the lane reads them)."""
+        G = len(problem.group_pods)
+        unplaced_arr = out["unplaced"][:G]
+        n_open = out["n_open"]
         # Dense plan reconstruction from the sparse form: `placed` scatters
         # back on the host, and `used` is exactly placements x requests (plus
         # the pre-opened rows' starting usage).
-        Nr = N + pre_extra
         Z, C = problem.group_window.shape[1], problem.group_window.shape[2]
         node_window = unpack_window_bits(out["node_window"], Z, C)
         nz, nz_cnt, total_nz = out["nz"], out["nz_cnt"], out["total_nz"]
         if total_nz > nz.shape[0]:
             # the sparse buffer overflowed: fetch the dense plan
-            placed = res.placed.cpu().numpy().astype(np.int32)
-            used = res.used.cpu().numpy()
+            placed = dense[0].cpu().numpy().astype(np.int32)
+            used = dense[1].cpu().numpy()
         else:
             placed = np.zeros((GB, Nr), dtype=np.int32)
             valid = nz >= 0
@@ -1025,7 +1062,7 @@ class TorchSolver:
             used = placed[:G].T.astype(np.float32) @ problem.requests[:G]
             if n_pre:
                 used[:n_pre] += pre_rows[2]
-        res = None  # the device buffers are not needed past this point
+        dense = None  # the device buffers are not needed past this point
         self.timings["device_ms"] = self.timings.get("device_ms", 0.0) + (
             (time.perf_counter() - t_dev) * 1e3
         )
@@ -1110,7 +1147,86 @@ class TorchSolver:
         )
         return self._optimizer_arbitrate(problem, (specs, binds, unplaced), opt, hist_key)
 
-    def _maybe_dispatch_optimizer(self, problem, dev_in: dict, n_rows: int, n_pre: int,
+    def dispatch_encoded_batch(self, items: Sequence[tuple]) -> list[tuple]:
+        """K independent encoded problems (one per nodepool), each with its
+        pool's existing nodes: ``[(problem, existing), ...]`` in, their
+        ``(specs, binds, unplaced)`` out, in order. With at least two
+        problems that have groups, those run as partition lanes: ONE launch
+        of the FFD kernel of one cluster a lane, each lane from its own
+        pre-opened rows, then ONE device-to-host copy for every lane; each
+        lane's ranking, sparse plan, refine, decode and optimizer lane are
+        the solo path's. ``KARPENTER_TPU_PARTITION_SOLVE=0``, or fewer than
+        two such problems, solves them one by one. A lane launch either runs
+        or raises: nothing falls back to the one-by-one path."""
+        lanes = [i for i, (p, _e) in enumerate(items) if len(p.group_pods) > 0]
+        if (os.environ.get("KARPENTER_TPU_PARTITION_SOLVE", "auto") == "0"
+                or len(lanes) < 2):
+            return [self.solve_encoded(p, e) for p, e in items]
+        solved = dict(zip(lanes, self._dispatch_lanes([items[i] for i in lanes])))
+        return [solved[i] if i in solved else self.solve_encoded(p, e)
+                for i, (p, e) in enumerate(items)]
+
+    def _dispatch_lanes(self, items: Sequence[tuple]) -> list[tuple]:
+        """The partition lanes behind ``dispatch_encoded_batch``: every
+        problem padded to the batch's group bucket, stacked on common type
+        and zone buckets and a common row count (the largest lane's estimate
+        plus its pre-opened rows, on the row ladder), solved in one launch.
+        A lane that runs out of rows is not retried here: its leftover pods
+        ride the multi-pool straggler pass, as in the reference."""
+        from ..metrics import PARTITION_SOLVE_LANES
+        from ..parallel.mesh import (
+            LANE_FIELDS, lanes_mode, solve_partition_lanes, stack_lane_problems,
+        )
+
+        K = len(items)
+        GB = max(bucket(max(len(p.group_pods), 1)) for p, _ in items)
+        metas: list[dict] = []
+        NR = 64
+        for problem, existing in items:
+            pre_rows = _encode_existing(problem, existing) if existing else None
+            n_pre = len(pre_rows[0]) if pre_rows else 0
+            N, _cap, pre_extra, hist_key = self._rows(problem, n_pre)
+            metas.append(dict(problem=problem, padded=_padded(problem, GB), pre_rows=pre_rows, n_pre=n_pre,
+                              pre_extra=pre_extra, hist_key=hist_key))
+            NR = max(NR, N + pre_extra)
+        NR = _node_rows_bucket(NR)
+
+        t_dev = time.perf_counter()
+        args, (TB, _ZB) = stack_lane_problems([m["padded"] for m in metas])
+        init, n_pres = stack_lane_states(
+            [m["pre_rows"][1:] if m["pre_rows"] else None for m in metas], NR,
+            args["requests"].shape[2], *args["group_window"].shape[2:])
+        mode = lanes_mode()
+        res, lane_in = solve_partition_lanes(args, init, n_pres, NR, device=self.device,
+                                             mode=mode)
+        PARTITION_SOLVE_LANES.inc(K, mode=mode)
+        self.timings["lanes"] = self.timings.get("lanes", 0) + K
+
+        all_parts = []
+        for k, m in enumerate(metas):
+            problem = m["problem"]
+            T_k = m["padded"].capacity.shape[0]
+            exotic = np.zeros(TB, dtype=bool)
+            if problem.type_exotic is not None:
+                exotic[:T_k] = problem.type_exotic
+            dev_k = {f: lane_in[f][k] for f in LANE_FIELDS}
+            dev_k["exotic"] = torch.from_numpy(exotic).to(self.device)
+            res_k = type(res)(*(f[k] for f in res))
+            all_parts.append((self._plan_parts(problem, dev_k, res_k, NR, GB, m["hist_key"],
+                                               T_real=T_k), res_k))
+        # ONE device-to-host copy drains every lane's result set
+        flat = torch.cat([t for parts, _ in all_parts for _, t, _ in parts]).cpu().numpy()
+        out, off = [], 0
+        for (parts, res_k), m in zip(all_parts, metas):
+            host, off = self._unpack(parts, flat, off, NR)
+            out.append(self._finish(
+                m["problem"], lambda _p=m["padded"]: self._device_inputs(_p), host,
+                (res_k.placed, res_k.used), NR, NR - m["pre_extra"], m["hist_key"],
+                m["pre_rows"], m["pre_rows"][0] if m["pre_rows"] else [], m["n_pre"], GB,
+                t_dev))
+        return out
+
+    def _maybe_dispatch_optimizer(self, problem, dev_in, n_rows: int, n_pre: int,
                                   hist_key) -> Optional[dict]:
         """Enqueue the optimizer lane on the solve's device inputs, or return
         None with the admission outcome counted, in the reference's order:
@@ -1140,6 +1256,8 @@ class TorchSolver:
             _opt.count_outcome(outcome)
             return None
         t0 = time.perf_counter()
+        if callable(dev_in):
+            dev_in = dev_in()
         opt = _opt.dispatch_optimizer(
             dev_in, n_rows, rank_k=min(MAX_INSTANCE_TYPE_OPTIONS, problem.capacity.shape[0]),
             noise_cache=self._lane_noise)
@@ -1526,10 +1644,14 @@ def _solve_multi_nodepool(
         # leave (host-computable from the encode), and their groups are
         # zeroed in pool k's problem so no pod is owned by two pools. Pods
         # a pool declined for other reasons (limits, minValues, rows) catch
-        # up in a sequential straggler pass. The JAX package overlaps the
-        # pools' device programs here; this package solves them in order,
-        # with the same assignment of pods to pools.
+        # up in a sequential straggler pass. Every pool's problem is
+        # encoded first and the batch solved at once: partition lanes, ONE
+        # launch of the FFD kernel for all pools that have pods
+        # (``dispatch_encoded_batch``). The chaining above is host work on
+        # the encodes alone, so the lanes change the number of launches and
+        # copies, not which pool owns which pod.
         staged = []
+        to_batch = []
         rem = pods_list
         for pool in pools_order:
             if not rem:
@@ -1545,9 +1667,12 @@ def _solve_multi_nodepool(
                         counts[g] = 0
                 problem = dataclasses.replace(problem, counts=counts)
             certain += hopeless
-            solved = impl.solve_encoded(problem, existing=pool_existing)
-            staged.append((pool, problem, solved, {p.uid for p in certain}))
+            to_batch.append((problem, pool_existing))
+            staged.append((pool, problem, {p.uid for p in certain}))
             rem = certain
+        solved_all = impl.dispatch_encoded_batch(to_batch) if to_batch else []
+        staged = [(pool, problem, solved, uids)
+                  for (pool, problem, uids), solved in zip(staged, solved_all)]
         stragglers: list[Pod] = []
         for pool, problem, solved, certain_uids in staged:
             leftover = pool_round(

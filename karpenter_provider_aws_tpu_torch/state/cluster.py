@@ -1,10 +1,12 @@
 """The Cluster store + Node model.
 
-The JAX package's ``state/cluster.py`` without its (nodepool, zone)
-partition router: every mutation through the store's methods bumps a
-monotonic revision and appends to one bounded change journal, which the
-incremental cluster encoder reads. The partition views (``partition_*``)
-raise ``NotImplementedError`` until the scale tier is carried.
+The JAX package's ``state/cluster.py``: every mutation through the store's
+methods bumps a monotonic revision and appends to a bounded change journal,
+which the incremental cluster encoder reads, and routes to the (nodepool,
+zone) partition it dirties, whose own journal the partitioned encoder
+(``ops/encode_partition.py``) reads. The partition views (``partition_*``)
+name each node's partition, the journal entries routed there, and what
+moved in one partition since a revision.
 """
 
 from __future__ import annotations
@@ -99,7 +101,10 @@ class _Journal:
 
     Entries are ``(rev, kind, name)`` with strictly increasing ``rev``, so
     ``since(rev)`` bisects to the first newer entry instead of scanning the
-    whole window. Appending past ``maxlen`` drops the single oldest entry
+    whole window — at 100k nodes the partition windows ladder up to ~1M
+    entries and a full-deque filter per consumer per pass was the dominant
+    steady-state patch cost. Keeps deque(maxlen=cap) eviction semantics
+    exactly: appending past ``maxlen`` drops the single oldest entry
     (amortized O(1) via a head offset compacted in bulk)."""
 
     __slots__ = ("maxlen", "_buf", "_revs", "_start")
@@ -139,8 +144,22 @@ class _Journal:
         return self._buf[lo:]
 
 
-_NO_PARTITIONS = ("the (nodepool, zone) partition router is not supported by this "
-                  "package yet")
+class _Partition:
+    """Per-partition change journal + revision bookkeeping (see Cluster).
+
+    Entries carry the cluster's GLOBAL revision numbers, so one consumer
+    can mix global and per-partition reads; ``rev`` is the newest global
+    revision routed to this partition (cheap "did partition p change since
+    rev r" checks without touching the journal)."""
+
+    __slots__ = ("key", "rev", "journal", "evicted_rev", "nodes")
+
+    def __init__(self, key: tuple, cap: int = 1024):
+        self.key = key
+        self.rev = 0
+        self.journal: _Journal = _Journal(maxlen=cap)
+        self.evicted_rev = 0  # newest global rev lost to the cap
+        self.nodes = 0        # live node count (journal-ladder input)
 
 
 #: Bumped by every tracked Node field write, across all clusters. The
@@ -189,6 +208,23 @@ class Cluster:
         self.rev: int = 0
         self._journal: _Journal = _Journal(maxlen=JOURNAL_CAP)
         self._journal_evicted_rev: int = 0  # newest rev lost to the cap
+        # Stable (nodepool, zone) partition index: every node maps to one
+        # partition, and journal entries route to the partition(s) they
+        # dirty IN ADDITION to the global journal. Per-partition revision
+        # counters + journals let one churning zone stay incremental for
+        # every other partition (ops/encode_partition.py), and the sharded
+        # screen/solve paths shard the partition axis across devices.
+        self._partitions: dict[tuple, _Partition] = {}
+        self._node_part: dict[str, tuple] = {}  # node name -> partition key
+        # Claim entries the router cannot place (no bound node yet) go to
+        # ONE shared claims journal instead of broadcasting into every
+        # partition's journal: a pending-claim storm (a big scale-up) must
+        # not roll every quiet partition's window at once — that would be
+        # the synchronized full-re-encode cliff the partition split exists
+        # to remove. Capped on its own ladder over the claim population.
+        self._claims_journal: _Journal = _Journal(maxlen=JOURNAL_CAP)
+        self._claims_evicted_rev: int = 0
+        self._claims_rev: int = 0
         # Epoch token: identifies THIS store incarnation. Environment.reset()
         # re-runs __init__ on the same object, so revision-keyed caches held
         # by other components key on the epoch object identity and can never
@@ -274,13 +310,39 @@ class Cluster:
             self._pending_seq = POD_BIND_SEQ.v
 
     # -- change journal ----------------------------------------------------
+    @staticmethod
+    def partition_key(node: "Node") -> tuple:
+        """The stable partition identity of a node: (nodepool, zone)."""
+        return (node.nodepool_name, node.zone())
+
+    def _partition(self, key: tuple) -> _Partition:
+        part = self._partitions.get(key)
+        if part is None:
+            part = self._partitions[key] = _Partition(key)
+        return part
+
+    def _route(self, part: _Partition, entry: tuple) -> None:
+        j = part.journal
+        if len(j) == j.maxlen:
+            cap = journal_cap_for(8 * max(part.nodes, 1), floor=1024)
+            if cap > j.maxlen:
+                # ladder regrow BEFORE overflow: the window scales with the
+                # partition population instead of silently rolling
+                j.maxlen = cap
+            else:
+                part.evicted_rev = j[0][0]
+        j.append(entry)
+        part.rev = entry[0]
+
     def _record(self, kind: str, name: str) -> None:
         """Bump ``rev`` and journal one mutation (callers hold the lock).
 
-        Before the journal would drop an entry, its cap climbs the ladder
-        over the store's population; past the ladder the oldest entry goes
-        and its revision becomes the oldest one ``changes_since`` can
-        answer from."""
+        The entry also routes to the partition(s) it dirties: node/pod
+        entries to the named node's partition, claim entries to the backing
+        node's partition when known (broadcast otherwise — a claim flip the
+        router cannot place must dirty every partition, never none).
+        Pool/nodeclass/pdb entries stay global-only: the cluster encoder
+        ignores them, and partition consumers read them from the store."""
         self.rev += 1
         j = self._journal
         if len(j) == j.maxlen:
@@ -289,34 +351,120 @@ class Cluster:
                 j.maxlen = cap
             else:
                 self._journal_evicted_rev = j[0][0]
-        j.append((self.rev, kind, name))
+        entry = (self.rev, kind, name)
+        j.append(entry)
+        if kind in ("node", "pod"):
+            if name:
+                pkey = self._node_part.get(name)
+                if pkey is None:
+                    node = self.nodes.get(name)
+                    if node is not None:
+                        pkey = self.partition_key(node)
+                        self._node_part[name] = pkey
+                        self._partition(pkey).nodes += 1
+                if pkey is not None:
+                    part = self._partition(pkey)
+                    self._route(part, entry)
+                    if kind == "node":
+                        node = self.nodes.get(name)
+                        if node is None:
+                            # node left the store: route the delete, drop
+                            # the mapping so the slot is reclaimable
+                            self._node_part.pop(name, None)
+                            part.nodes = max(part.nodes - 1, 0)
+                        else:
+                            cur = self.partition_key(node)
+                            if cur != pkey:
+                                # a node hopping partitions (pool/zone label
+                                # rewrite) dirties BOTH sides
+                                self._node_part[name] = cur
+                                part.nodes = max(part.nodes - 1, 0)
+                                new = self._partition(cur)
+                                new.nodes += 1
+                                self._route(new, entry)
+        elif kind == "claim":
+            claim = self.nodeclaims.get(name)
+            pkey = None
+            if claim is not None and claim.status.node_name:
+                pkey = self._node_part.get(claim.status.node_name)
+            if pkey is not None:
+                self._route(self._partition(pkey), entry)
+            else:
+                j = self._claims_journal
+                if len(j) == j.maxlen:
+                    cap = journal_cap_for(len(self.nodeclaims))
+                    if cap > j.maxlen:
+                        j.maxlen = cap
+                    else:
+                        self._claims_evicted_rev = j[0][0]
+                j.append(entry)
+                self._claims_rev = self.rev
 
     # -- partition views ---------------------------------------------------
-    @staticmethod
-    def partition_key(node: "Node") -> tuple:
-        raise NotImplementedError(_NO_PARTITIONS)
-
     def partition_keys(self) -> list[tuple]:
-        raise NotImplementedError(_NO_PARTITIONS)
+        """Stable (insertion-ordered) list of known partition keys."""
+        with self._lock:
+            return list(self._partitions)
 
     def partition_rev(self, key: tuple) -> int:
-        raise NotImplementedError(_NO_PARTITIONS)
+        """Newest global revision routed to ``key`` (0 = never touched)."""
+        with self._lock:
+            part = self._partitions.get(key)
+            return part.rev if part is not None else 0
 
     def partition_of(self, name: str) -> Optional[tuple]:
-        raise NotImplementedError(_NO_PARTITIONS)
+        """The partition a node's journal entries route to (None =
+        unknown). This is the ROUTER mapping, not the node's live labels:
+        the partitioned encoder keeps its row ownership consistent with
+        entry routing, so a direct label write that 'moves' a node is
+        simply re-encoded in place by its owning partition (exactness is
+        per-node, not per-partition-assignment)."""
+        with self._lock:
+            return self._node_part.get(name)
 
     def partition_nodes(self) -> dict[tuple, set]:
-        raise NotImplementedError(_NO_PARTITIONS)
-
-    def partition_changes_since(self, key: tuple, rev: int) -> Optional[dict]:
-        raise NotImplementedError(_NO_PARTITIONS)
+        """Partition key -> set of node names (router view; full-build
+        scoping input for the partitioned encoder)."""
+        with self._lock:
+            out: dict[tuple, set] = {}
+            for name, key in self._node_part.items():
+                out.setdefault(key, set()).add(name)
+            return out
 
     def note_node_update(self, node: "Node") -> None:
-        """Journal an in-place/direct mutation of a stored node. (The
+        """Journal an in-place/direct mutation of a stored node. The
         ``Node.__setattr__`` version counter already catches direct writes
-        for the encoder's defensive scan.)"""
+        for the encoders' defensive scan; journaling ALSO re-routes the
+        partition mapping when the write moved the node across partitions
+        (pool/zone label rewrite), dirtying both sides."""
         with self._lock:
             self._record("node", node.name)
+
+    def partition_changes_since(self, key: tuple, rev: int) -> Optional[dict]:
+        """Per-partition :meth:`changes_since`: mutations routed to ``key``
+        after global revision ``rev`` — plus unplaced claim entries from
+        the shared claims journal (every partition must see them) — as
+        ``{kind: [names]}``. ``{}`` when nothing relevant moved since
+        ``rev``, ``None`` when a bounded journal no longer covers
+        ``(rev, now]`` (rebuild that partition)."""
+        with self._lock:
+            part = self._partitions.get(key)
+            part_new = part is not None and part.rev > rev
+            claims_new = self._claims_rev > rev
+            if not part_new and not claims_new:
+                return {}
+            if part_new and rev < part.evicted_rev:
+                return None
+            if claims_new and rev < self._claims_evicted_rev:
+                return None
+            out: dict[str, list[str]] = {}
+            if part_new:
+                for _r, kind, name in part.journal.since(rev):
+                    out.setdefault(kind, []).append(name)
+            if claims_new:
+                for _r, _kind, name in self._claims_journal.since(rev):
+                    out.setdefault("claim", []).append(name)
+            return out
 
     def changes_since(self, rev: int) -> Optional[dict[str, list[str]]]:
         """Mutations after ``rev`` as ``{kind: [names, in order]}``.

@@ -87,6 +87,31 @@ def test_plain_repack_uint16_wire_and_chunking(chunk):
     np.testing.assert_array_equal(_port(*args, cap_form="uint16", chunk=chunk), want)
 
 
+def _mirror_padded_slots():
+    """Eight slots as the device mirror pads them: slots 1, 2, 4, 6 and 7
+    hold nothing on any node, slot 5 only from node 20 on, and axes 3-8 are
+    requested by no group."""
+    free, requests, gids, gcounts, compat, cand = repack_cases.random_problem(
+        np.random.RandomState(6), 40, 8, 8, fill=0.7)
+    gcounts[:, [1, 2, 4, 6, 7]] = 0
+    gcounts[:20, 5] = 0
+    free *= 0.5  # tight enough that verdicts split
+    return free, requests, gids, gcounts, compat, cand
+
+
+@pytest.mark.parametrize("reference", ["xla", "pallas"])
+@pytest.mark.parametrize("chunk", [1, 7, 512])
+def test_plain_repack_skipped_slots_and_axes_match_reference(chunk, reference):
+    """The plain version passes over slots that are empty for a whole
+    candidate chunk and axes no group requests; the verdicts stay the
+    reference's, at every chunk size."""
+    args = _mirror_padded_slots()
+    want = (_reference_xla if reference == "xla" else _reference_pallas)(*args)
+    got = _port(*args, chunk=chunk)
+    np.testing.assert_array_equal(got, want.astype(bool))
+    assert 0 < got.sum() < len(got)
+
+
 def test_zero_request_group_is_repackable():
     """A group that requests nothing fits 2^30 pods on every compatible
     node; the int64 prefix sum places its count, as the Pallas kernel's f32
@@ -386,9 +411,14 @@ def test_incremental_encode_raises():
 
 
 def test_partitioned_tensors_raise(encoded):
+    """Partitions that do not tile the node axis raise before any screen
+    (one partition of the whole axis screens the tensors whole)."""
     ct = _handover(encoded["config4_40"][0])
     ct.__dict__["_partitions"] = [("p", ct, 0, 40)]
-    with pytest.raises(NotImplementedError):
+    assert tcons.consolidatable(ct, device="cpu").shape == (40,)
+    ct.__dict__.pop("_screen_mask_memo", None)
+    ct.__dict__["_partitions"] = [("p", ct, 0, 40), ("q", ct, 40, 40)]
+    with pytest.raises(ValueError, match="partitions"):
         tcons.consolidatable(ct, device="cpu")
 
 

@@ -535,8 +535,11 @@ def test_gang_bound_and_partition_are_refused():
             solver.solve([], [], None, gang_bound={"g": 1})
     with pytest.raises(NotImplementedError, match="partition"):
         snapshot_existing_capacity(Cluster(), partition=("default", "zone-a"))
+    assert Cluster().partition_keys() == []  # the router is carried
+    from karpenter_provider_aws_tpu_torch import parallel
+
     with pytest.raises(NotImplementedError, match="partition"):
-        Cluster().partition_keys()
+        parallel.solve_sharded()
     with pytest.raises(NotImplementedError, match="profile"):
         Profiler(profile_dir="/nonexistent")
 

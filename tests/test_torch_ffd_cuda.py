@@ -17,7 +17,10 @@ The lane launch (``ffd_solve_lanes``: 8 lanes in one launch, each from no
 open rows, built by the optimizer lane's own ``first_round``, so the lanes
 differ in group order and price mask as its lanes do) is held to 8 plain
 solves on the one-CTA branch (256 rows), the 8-CTA shared-memory branch
-(3,300 and 4,096 rows) and the global-memory branch (20,480 rows).
+(3,300 and 4,096 rows) and the global-memory branch (20,480 rows); and the
+partition lanes' launch (``ops/ffd_cases.py`` ``lanes_pre_opened``: 3 lanes
+of distinct problems on padded type axes, each from its own pre-opened rows,
+n_pre 0 / 300 / 2,000, 4,096 rows) to each lane's plain solve.
 Integers must be equal exactly; ``node_price`` and ``used`` to rtol 1e-6 /
 atol 1e-3 (f32 accumulation order may differ).
 """
@@ -96,3 +99,26 @@ def test_cuda_kernel_matches_plain():
             torch.testing.assert_close(got.node_price[lane], want.node_price,
                                        rtol=1e-6, atol=1e-3)
             torch.testing.assert_close(got.used[lane], want.used, rtol=1e-6, atol=1e-3)
+
+    # the partition lanes: one launch of lanes with distinct problems, each
+    # from its own pre-opened rows, against each lane's plain solve
+    from karpenter_provider_aws_tpu_torch.parallel import mesh
+
+    problems, N, pre = ffd_cases.lanes_pre_opened()
+    args, (_TB, ZB) = mesh.stack_lane_problems(problems)
+    init, n_pres = mesh.stack_lane_states(pre, N, args["requests"].shape[2], ZB,
+                                          args["group_window"].shape[3])
+    launches = ffd_cuda.LAUNCHES
+    got, t = mesh.solve_partition_lanes(args, init, n_pres, N, device="cuda")
+    torch.cuda.synchronize()
+    assert ffd_cuda.LAUNCHES == launches + 1
+    state = mesh.lane_state(init, "cuda")
+    for lane, n_pre in enumerate(n_pres):
+        want = tffd.ffd_solve(*(t[f][lane] for f in mesh.LANE_FIELDS[:7]),
+                              max_per_node=t["max_per_node"][lane], max_nodes=N,
+                              init_state=tffd._State(*(f[lane] for f in state)), n_pre=n_pre)
+        assert int(want.n_open) > n_pre, lane
+        for field in ("placed", "unplaced", "n_open", "node_type", "node_window"):
+            assert torch.equal(getattr(got, field)[lane], getattr(want, field)), (lane, field)
+        torch.testing.assert_close(got.node_price[lane], want.node_price, rtol=1e-6, atol=1e-3)
+        torch.testing.assert_close(got.used[lane], want.used, rtol=1e-6, atol=1e-3)

@@ -140,7 +140,7 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize("var,value", [
     ("KARPENTER_TPU_OPT_COLD_SKIP", "1"),
     ("KARPENTER_TPU_WHY", "1"),
-    ("KARPENTER_TPU_PARTITION_SOLVE", "vmap"),
+    ("KARPENTER_TPU_PARTITION_SOLVE", "shard_map"),
 ])
 def test_unsupported_lanes_are_refused(var, value, monkeypatch):
     monkeypatch.setenv(var, value)
